@@ -9,8 +9,10 @@ Phases (each prints its results, one line each):
            three kernels from src/repro_torch/csrc
   kernels  every kernel against its plain PyTorch version on the card at
            the serving path's full-width shapes (fp32 and bf16), the
-           bit-exact pins, and each kernel's time beside its bound, the
-           plain version's time and one PyTorch library call's time
+           bit-exact pins (int8 at decode: two calls give the same bits),
+           and each kernel's time beside its bound, the plain version's
+           time and one PyTorch library call's time; the decode int8
+           shapes also with their weights cold in L2
   model    full-width stablelm-1.6b (fp32 and int8) through prefill and
            teacher-forced decode on the "cuda" path against the "naive"
            path with the same weights, and a prefill_row backfill
@@ -32,7 +34,9 @@ repository, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -49,6 +53,9 @@ EXTRA_PHASES = ("profile",)
 # CUDA cores (the kernels keep IEEE fp32), bf16 on the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# Copies of a weight to rotate through for an L2-cold time: well over
+# the H100's 50 MB L2, as a decode step streams 1.2 GB of weights.
+COLD_BYTES = 256 << 20
 
 # Full-width serving shapes of stablelm-1.6b (configs/stablelm_1_6b.py).
 B, H, HD, D, F = 4, 32, 64, 2048, 5632
@@ -83,19 +90,42 @@ def require(cond, what):
         raise Failed(what)
 
 
-def bench_ms(fn, iters=20, warmup=3):
-    """Device time of one call: CUDA events around `iters` calls."""
+def bench_ms(fn, iters=20, warmup=3, queued=True):
+    """Device time of one call: CUDA events around `iters` calls. With
+    `queued`, the calls are enqueued behind a sleeping kernel, so the
+    card runs them back to back and the host's enqueue rate (a Python
+    wrapper takes tens of microseconds a call) does not show; without
+    it, the pace at which the host issues the calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    for cycles in (1 << 22, 1 << 24, 1 << 26, 1 << 28):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(cycles)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        if not (queued and t0.query()):  # the calls all queued in time
+            torch.cuda.synchronize()
+            return t0.elapsed_time(t1) / iters
+        torch.cuda.synchronize()
+    raise Failed("bench_ms: the calls did not queue behind the sleep")
+
+
+def bench_cold_ms(fn, operands):
+    """Device time of one call with its weight cold in L2: call i reads
+    operands[i % len(operands)], copies that together exceed the L2."""
+    n = len(operands)
+    i = itertools.count()
+    return bench_ms(lambda: fn(operands[next(i) % n]), iters=2 * n, warmup=n)
+
+
+def copies(t):
+    """Enough copies of t to fill COLD_BYTES."""
+    return [t.clone() for _ in range(-(-COLD_BYTES // t.nbytes))]
 
 
 def bound(nbytes, flops, dtype):
@@ -123,7 +153,44 @@ def phase_build():
     libs = _build.build(verbose=True)
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.nvcc_path()}, {' '.join(_build.NVCC_FLAGS)})")
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    ops, ffma = sass_hot_loop(_build._lib_path("int8_matmul"),
+                              "int8_matmul_small_mIfLi4ELb1E")
+    # At M = 4 every weight byte takes four FMAs.
+    log(f"sass int8_matmul_small_m<float, 4, true> hot loop: {ops} "
+        f"instructions, {ffma} FFMA: {4 * ops / max(ffma, 1):.2f} "
+        f"instructions per weight byte; SM clock max {clock}; "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     return smi[0]
+
+
+def sass_hot_loop(lib, function):
+    """(instructions, FFMAs) of the innermost loop with the most FFMAs in
+    the kernel whose mangled name holds `function`, from cuobjdump's
+    SASS of the built library: the span from a backward branch's target
+    to the branch."""
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    best = (0, 0)
+    for fn in sass.split("Function : ")[1:]:
+        if function not in fn.split("\n", 1)[0]:
+            continue
+        ins = [(int(a, 16), t) for a, t in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+        where = {a: i for i, (a, _) in enumerate(ins)}
+        for i, (a, t) in enumerate(ins):
+            m = re.search(r"\bBRA\b.*0x([0-9a-f]+)", t)
+            if m and int(m.group(1), 16) < a and int(m.group(1), 16) in where:
+                body = ins[where[int(m.group(1), 16)]:i + 1]
+                ffma = sum(bool(re.search(r"\bFFMA\b", x)) for _, x in body)
+                if (ffma, -len(body)) > (best[1], -best[0]):
+                    best = (len(body), ffma)
+    return best
 
 
 # --------------------------------------------------------------------------
@@ -175,6 +242,7 @@ def _decode_cases():
 
 def phase_kernels(results):
     from repro_torch.kernels import ops, ref as R
+    from repro_torch.kernels.int8_matmul import small_m_plan
     gen = torch.Generator(device="cuda").manual_seed(0)
     vft = lambda v: None if v is None else torch.tensor(
         v, dtype=torch.int32, device="cuda")
@@ -255,6 +323,7 @@ def phase_kernels(results):
 
     # -- int8 matmul -------------------------------------------------------
     iworst = 0.0
+    ipins = {}
     for dtype in (torch.float32, torch.bfloat16):
         for M in (B, B * T_PREFILL):
             for K, N in ((D, D), (D, F), (F, D)):
@@ -274,6 +343,13 @@ def phase_kernels(results):
                     f"tol={INT8_TOL[dtype]}*max|ref| "
                     f"{'ok' if ok else 'FAIL'}")
                 require(ok, f"int8 M={M} K={K} N={N} {dtype}")
+                if M == B:
+                    same = torch.equal(ops.int8_matmul(x, wq, sc), out)
+                    ipins[f"M={M} K={K} N={N} {str(dtype)[6:]}"] = same
+                    log(f"int8 pin M={M} K={K} N={N} {str(dtype)[6:]}: two "
+                        f"calls bit-identical: {same}")
+                    require(same, f"int8 determinism M={M} K={K} N={N} "
+                                  f"{dtype}")
 
     # -- times at the main path's shapes (fp32, as the model runs) ---------
     f32 = torch.float32
@@ -343,13 +419,33 @@ def phase_kernels(results):
                      plain_ms=bench_ms(lambda: R.int8_matmul_ref(x, wq, sc)),
                      bound_ms=tb, bound_by=by,
                      library_ms=bench_ms(lambda: torch.matmul(x, wd)))
+            if M == B:
+                r["cold_ms"] = bench_cold_ms(
+                    lambda w: ops.int8_matmul(x, w, sc), copies(wq))
+                r["library_cold_ms"] = bench_cold_ms(
+                    lambda w: torch.matmul(x, w), copies(wd))
+                torch.cuda.empty_cache()
+                # What does not scale with K: the same call on 32 rows
+                # of K, and an empty kernel's launch; and the host's pace.
+                x32, w32 = x[:, :32].contiguous(), wq[:32]
+                r["k32_ms"] = bench_ms(lambda: ops.int8_matmul(x32, w32, sc))
+                r["empty_launch_ms"] = bench_ms(lambda: torch.cuda._sleep(0))
+                r["enqueue_ms"] = bench_ms(lambda: ops.int8_matmul(x, wq, sc),
+                                           queued=False)
+                # The grid the launcher chose, and how many of its
+                # clusters the card runs at once.
+                r["grid"] = small_m_plan(N, K)
             rows[(M, K, N)] = r
             log(f"time int8_matmul M={M} K={K} N={N} fp32: "
                 f"{json.dumps(r)}")
     results["int8_matmul"] = dict(
-        rows[(B, D, F)], max_abs_err=iworst, pins={},
+        rows[(B, D, F)], max_abs_err=iworst, pins=ipins,
+        small_m=[dict(K=K, N=N, **rows[(B, K, N)])
+                 for K, N in ((D, D), (D, F), (F, D))],
         shape=f"M={B} K={D} N={F} fp32 (decode w_up); max_abs_err is "
-              f"relative to max|ref|; other shapes on the lines above")
+              f"relative to max|ref|; cold_ms: weights cold in L2; "
+              f"small_m: the three decode shapes; the prefill shapes on "
+              f"the lines above")
     for name in ("flash_attention", "decode_attention"):
         log(f"time {name}: {json.dumps(results[name])}")
 
@@ -625,6 +721,8 @@ def main(argv=None):
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
                 pins=r["pins"],
+                **{k: r[k] for k in ("cold_ms", "library_cold_ms", "small_m")
+                   if k in r},
                 shape=r["shape"]))
         print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,14 @@
 `csrc/int8_matmul.cu` (the port of the TPU kernel
 `repro/kernels/int8_matmul.py`).
 
+Two paths behind one launch. M > 8 (prefill) runs a tiled product.
+M <= 8 (decode) streams the weights split over column tiles and K
+slices; the kernel's launcher sizes that grid from the card's SM count
+(`small_m_plan` reports it), and the K slices of a column tile, one
+thread-block cluster, add their sums in a fixed order inside the same
+launch. Every call is one launch, and two calls on the same inputs give
+the same bits.
+
 This wrapper only launches the kernel: it takes CUDA tensors and raises
 on anything else. The plain version is `kernels.ref.int8_matmul_ref`;
 `kernels.ops` sends CPU tensors there.
@@ -28,6 +36,20 @@ def _fn():
     fn.argtypes = _ARGTYPES
     fn.restype = _C.c_int
     return fn
+
+
+def small_m_plan(N: int, K: int) -> dict:
+    """The decode path's grid for an (K, N) weight on the current CUDA
+    device, as the kernel's launcher works it out: column tiles, K slices
+    (one cluster a tile), rows of K per slice, and the clusters the card
+    runs at once."""
+    fn = _build.load("int8_matmul").int8_matmul_small_m_plan
+    fn.argtypes = [_C.c_int, _C.c_int, _C.POINTER(_C.c_int)]
+    fn.restype = _C.c_int
+    out = (_C.c_int * 4)()
+    _build.check(fn(N, K, out), "int8_matmul_small_m_plan")
+    return dict(zip(("tiles", "splits", "k_split", "resident_clusters"),
+                    out))
 
 
 def _check_args(x, w_q, w_scale):

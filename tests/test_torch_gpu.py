@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref as R
+from repro_torch.kernels.int8_matmul import small_m_plan
 
 pytestmark = pytest.mark.gpu
 
@@ -112,13 +113,30 @@ def test_decode_attention_pins(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mnk", [(4, 96, 160), (8, 33, 70), (100, 200, 300),
-                                 (257, 64, 130)])
-def test_int8_matmul_matches_plain(cuda, mnk, dtype):
-    M, N, K = mnk
-    x = _randn(cuda, (M, K), dtype)
-    wq = torch.randint(-127, 128, (K, N), generator=cuda, device="cuda",
-                       dtype=torch.int8)
+@pytest.mark.parametrize("case", [
+    # (M, N, K, x_pad, w_off): x_pad > 0 reads x as a column slice of a
+    # wider tensor (lda = K + x_pad); w_off = 1 puts the weights one byte
+    # off a 16-byte boundary (the byte-load path at any N).
+    (4, 96, 160, 0, 0),
+    (8, 33, 70, 0, 0),          # scalar tail: N % 16 != 0
+    (1, 70, 33, 0, 0),          # scalar tail, M = 1
+    (1, 2048, 2048, 0, 0),      # decode shape, M = 1
+    (2, 2048, 2048, 0, 0),      # decode shape, M = 2 (rounds up to 4)
+    (8, 2048, 2048, 0, 0),      # decode shape, M = 8
+    (3, 2048, 5632, 0, 0),      # vector path, last K slice shorter
+    (4, 5632, 2048, 0, 0),
+    (5, 160, 1000, 0, 0),       # vector path plus K tail, M rounds up
+    (4, 2048, 2048, 37, 0),     # strided x
+    (4, 256, 300, 0, 1),        # unaligned weights
+    (100, 200, 300, 0, 0),
+    (257, 64, 130, 0, 0),
+    (257, 64, 130, 5, 0),       # tiled path, strided x
+])
+def test_int8_matmul_matches_plain(cuda, case, dtype):
+    M, N, K, x_pad, w_off = case
+    x = _randn(cuda, (M, K + x_pad), dtype)[:, :K]
+    wq = torch.randint(-127, 128, (K * N + w_off,), generator=cuda,
+                       device="cuda", dtype=torch.int8)[w_off:].view(K, N)
     sc = torch.rand((N,), generator=cuda, device="cuda") * 1e-2
     before = ops.launch_counts()["int8_matmul"]
     out = ops.int8_matmul(x, wq, sc)
@@ -128,3 +146,60 @@ def test_int8_matmul_matches_plain(cuda, mnk, dtype):
         want.float().abs().max())
     assert float((out.float() - want.float()).abs().max()) <= tol
     assert ops.launch_counts()["int8_matmul"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_deterministic(cuda, dtype):
+    """The split-K reduction adds the K slices in a fixed order: repeated
+    calls at a decode shape give the same bits, also with other shapes'
+    calls between them."""
+    x = _randn(cuda, (4, 5632), dtype)
+    wq = torch.randint(-127, 128, (5632, 2048), generator=cuda,
+                       device="cuda", dtype=torch.int8)
+    sc = torch.rand((2048,), generator=cuda, device="cuda") * 1e-2
+    first = ops.int8_matmul(x, wq, sc)
+    for _ in range(3):
+        ops.int8_matmul(x[:, :2048], wq[:2048].contiguous(), sc)
+        assert torch.equal(ops.int8_matmul(x, wq, sc), first)
+
+
+@pytest.mark.parametrize("N", [33, 2048, 5632])
+def test_int8_small_m_plan_covers_k_once(cuda, N):
+    """The decode path's split plan, as the launcher works it out on this
+    card: the K slices cover every row of K exactly once, none is empty,
+    and there are at most 8 of them (one portable cluster)."""
+    for K in list(range(1, 300)) + [1000, 2048, 5632, 8191, 100000]:
+        p = small_m_plan(N, K)
+        assert 1 <= p["splits"] <= 8
+        seen = torch.zeros(K, dtype=torch.int64)
+        for s in range(p["splits"]):
+            lo, hi = s * p["k_split"], min(K, (s + 1) * p["k_split"])
+            assert lo < hi
+            seen[lo:hi] += 1
+        assert bool((seen == 1).all())
+
+
+def test_int8_small_m_every_k(cuda):
+    """The kernel against its plain version at every K up to 300 and a
+    few larger ones, so at every slice boundary the plan draws."""
+    N = 160
+    for K in list(range(1, 301)) + [1000, 2047, 5632]:
+        x = _randn(cuda, (4, K), torch.float32)
+        wq = torch.randint(-127, 128, (K, N), generator=cuda, device="cuda",
+                           dtype=torch.int8)
+        sc = torch.rand((N,), generator=cuda, device="cuda") * 1e-2
+        out = ops.int8_matmul(x, wq, sc)
+        want = R.int8_matmul_ref(x, wq, sc)
+        tol = 1e-4 * float(want.abs().max())
+        assert float((out - want).abs().max()) <= tol, K
+
+
+@pytest.mark.parametrize("K, N", [(2048, 2048), (2048, 5632), (5632, 2048)])
+def test_int8_small_m_plan_fills_the_card(cuda, K, N):
+    """At the decode projections of stablelm-1.6b the grid runs in one
+    wave (the card holds every tile's cluster at once) and gives every SM
+    a block, as far as the limit of 8 slices a tile allows."""
+    p = small_m_plan(N, K)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert p["tiles"] <= p["resident_clusters"]
+    assert p["tiles"] * p["splits"] >= min(sms, p["tiles"] * 8)

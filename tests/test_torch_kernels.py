@@ -189,6 +189,32 @@ def test_ops_int8_nonmultiple_matches_jax(rng):
                                rtol=1e-4)
 
 
+@pytest.mark.parametrize("case", [
+    # (M, N, K, x_pad): the decode path's shapes in small; x_pad > 0 reads
+    # x as a column slice of a wider array (row stride K + x_pad).
+    (1, 70, 33, 0),
+    (2, 64, 96, 0),
+    (4, 96, 160, 0),
+    (4, 96, 160, 37),
+    (5, 160, 300, 0),
+    (8, 33, 70, 0),
+    (8, 48, 130, 5),
+])
+def test_ops_int8_small_m_matches_jax(case, rng):
+    """The int8 op at decode-sized M, on the CPU, against the JAX kernel."""
+    M, N, K, x_pad = case
+    xw = rng.normal(size=(M, K + x_pad)).astype(np.float32)
+    wq, sc = quantize_int8(jnp.asarray(rng.normal(size=(K, N)),
+                                       jnp.float32), axis=0)
+    want = jops.int8_matmul(jnp.asarray(xw[:, :K]), wq, sc.reshape(-1),
+                            block_m=8, block_n=32, block_k=32)
+    got = ops.int8_matmul(torch.from_numpy(xw)[:, :K],
+                          torch.from_numpy(np.array(wq)),
+                          torch.from_numpy(np.array(sc).reshape(-1)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+
+
 # -- the port's own pins and the no-fallback rule ---------------------------
 
 def test_ops_valid_from_zero_bit_identical(rng):
