@@ -6,24 +6,34 @@
 
 Phases (each prints its results, one line each):
   build    card name and power limit, torch version, nvcc build of the
-           three kernels from src/repro_torch/csrc
+           three kernels from src/repro_torch/csrc (with ptxas's
+           registers and spills of the prefill int8 kernels)
   kernels  every kernel against its plain PyTorch version on the card at
-           the serving path's full-width shapes (fp32 and bf16), the
-           bit-exact pins (int8 at decode: two calls give the same bits),
-           and each kernel's time beside its bound, the plain version's
-           time and one PyTorch library call's time; the decode int8
-           shapes also with their weights cold in L2
+           the serving path's full-width shapes (fp32 and bf16; int8 at
+           the decode M and the serve and model phases' prefill M), the
+           bit-exact pins (int8 at decode and at M = 256: two calls give
+           the same bits), and each kernel's time beside its bound, the
+           plain version's time and one PyTorch library call's time; the
+           decode int8 shapes also with their weights cold in L2
   model    full-width stablelm-1.6b (fp32 and int8) through prefill and
            teacher-forced decode on the "cuda" path against the "naive"
-           path with the same weights, and a prefill_row backfill
-           against a from-scratch prefill
+           path (for int8: on the dequantized weights, so no int8
+           kernel), and a prefill_row backfill against a from-scratch
+           prefill
   serve    the main path: CNNSelectServer over the two full-width
            engines (profiling, then requests under cnnselect), then a
            ServingLoop run with staggered arrivals that backfills freed
-           slots; every kernel's launch counter must be > 0 here
-  profile  (only when asked for) where a full-width decode step's time
-           goes: host wall time against device kernel time from
-           torch.profiler, and the kernels that take it
+           slots; every kernel's launch counter, and that of the int8
+           kernel's prefill path, must be > 0 here
+  profile  (only when asked for) where the time of a full-width decode
+           step and of a full-width prefill (T = 64 and 512) goes: host
+           wall time against device kernel time from torch.profiler,
+           int8_matmul's share, and the kernels that take it
+  tune     (only when asked for) the prefill int8 path's variants side
+           by side: the source as it is, each tile's ring 2 <-> 3 stages
+           deep, and each tile forced, built from csrc/int8_matmul.cu
+           with -D values of its tuning macros and timed at the
+           projections' shapes, weights hot and cold in L2
 
 The last two lines are a {"kernels": [...]} JSON object and the result
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -47,10 +57,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "model", "serve")
-EXTRA_PHASES = ("profile",)
+EXTRA_PHASES = ("profile", "tune")
 
-# NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth, fp32 on the
-# CUDA cores (the kernels keep IEEE fp32), bf16 on the tensor cores.
+# NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth; fp32 on the
+# CUDA cores, where the attention kernels and the decode int8 path
+# compute; bf16 on the tensor cores, where the prefill int8 path computes
+# (two bf16 passes for fp32 x).
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # Copies of a weight to rotate through for an L2-cold time: well over
@@ -60,6 +72,10 @@ COLD_BYTES = 256 << 20
 # Full-width serving shapes of stablelm-1.6b (configs/stablelm_1_6b.py).
 B, H, HD, D, F = 4, 32, 64, 2048, 5632
 T_PREFILL, S_CACHE = 512, 1024
+T_SERVE = 64            # prompt length of the serve phase
+# int8 rows: decode (M = B), the serve phase's prefill, the model phase's.
+INT8_M = (B, B * T_SERVE, B * T_PREFILL)
+PROJ_KN = ((D, D), (D, F), (F, D))   # (K, N): q/k/v/o, gate/up, down
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 INT8_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 LOGIT_TOL = 1e-4
@@ -163,7 +179,37 @@ def phase_build():
         f"instructions, {ffma} FFMA: {4 * ops / max(ffma, 1):.2f} "
         f"instructions per weight byte; SM clock max {clock}; "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    if "int8_matmul" in _build.LOGS:
+        usage = ptxas_usage(_build.LOGS["int8_matmul"], "int8_matmul_prefill")
+        require(usage, "no int8_matmul_prefill kernel in ptxas's output")
+        for name, regs, spills in usage:
+            log(f"ptxas {name}: {regs} registers, {spills}")
+    else:
+        log(f"ptxas int8_matmul_prefill: registers and spills not reported, "
+            f"as {_build._lib_path('int8_matmul')} was built by an earlier "
+            f"process (delete it to see them)")
     return smi[0]
+
+
+def ptxas_usage(nvcc_log, function):
+    """(kernel, registers, spill line) of each kernel whose mangled name
+    holds `function`, from nvcc's -Xptxas -v output."""
+    out = []
+    for part in nvcc_log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        if function not in name:
+            continue
+        m = re.search(r"PfTileILi(\d+)ELi(\d+)E.*?Lb([01])E", name)
+        if m:
+            dtype = "float" if f"{function}If" in name else "bf16"
+            name = (f"{function}<{dtype}, {m[1]}x{m[2]}, "
+                    f"{'16-byte copies' if m[3] == '1' else 'element loads'}>")
+        regs = re.search(r"Used (\d+) registers", part)
+        spills = re.search(r"\d+ bytes spill stores, \d+ bytes spill loads",
+                           part)
+        out.append((name, regs[1] if regs else "?",
+                    spills[0] if spills else "spills not reported"))
+    return out
 
 
 def sass_hot_loop(lib, function):
@@ -242,7 +288,7 @@ def _decode_cases():
 
 def phase_kernels(results):
     from repro_torch.kernels import ops, ref as R
-    from repro_torch.kernels.int8_matmul import small_m_plan
+    from repro_torch.kernels.int8_matmul import prefill_plan, small_m_plan
     gen = torch.Generator(device="cuda").manual_seed(0)
     vft = lambda v: None if v is None else torch.tensor(
         v, dtype=torch.int32, device="cuda")
@@ -325,8 +371,8 @@ def phase_kernels(results):
     iworst = 0.0
     ipins = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for M in (B, B * T_PREFILL):
-            for K, N in ((D, D), (D, F), (F, D)):
+        for M in INT8_M:
+            for K, N in PROJ_KN:
                 x = _randn(gen, (M, K), dtype)
                 wq = torch.randint(-127, 128, (K, N), generator=gen,
                                    device="cuda", dtype=torch.int8)
@@ -343,7 +389,7 @@ def phase_kernels(results):
                     f"tol={INT8_TOL[dtype]}*max|ref| "
                     f"{'ok' if ok else 'FAIL'}")
                 require(ok, f"int8 M={M} K={K} N={N} {dtype}")
-                if M == B:
+                if M <= B * T_SERVE:   # the decode path and a prefill M
                     same = torch.equal(ops.int8_matmul(x, wq, sc), out)
                     ipins[f"M={M} K={K} N={N} {str(dtype)[6:]}"] = same
                     log(f"int8 pin M={M} K={K} N={N} {str(dtype)[6:]}: two "
@@ -406,20 +452,30 @@ def phase_kernels(results):
               f"linear")
 
     rows = {}
-    for M in (B, B * T_PREFILL):
-        for K, N in ((D, D), (D, F), (F, D)):
+    for M in INT8_M:
+        for K, N in PROJ_KN:
             x = _randn(gen, (M, K), f32)
             wq = torch.randint(-127, 128, (K, N), generator=gen,
                                device="cuda", dtype=torch.int8)
             sc = torch.rand((N,), generator=gen, device="cuda") * 1e-3
             wd = wq.float() * sc
-            tb, by = bound(M * K * 4 + K * N + N * 4 + M * N * 4,
-                           2 * M * K * N, f32)
+            nbytes = M * K * 4 + K * N + N * 4 + M * N * 4
+            if M > B:
+                # The prefill path: two bf16 mma passes (hi and lo parts
+                # of fp32 x) on the tensor cores; beside it the bound of
+                # the same product on the CUDA cores in fp32.
+                tb, by = bound(nbytes, 2 * 2 * M * K * N, torch.bfloat16)
+            else:
+                tb, by = bound(nbytes, 2 * M * K * N, f32)
             r = dict(ms=bench_ms(lambda: ops.int8_matmul(x, wq, sc)),
                      plain_ms=bench_ms(lambda: R.int8_matmul_ref(x, wq, sc)),
                      bound_ms=tb, bound_by=by,
                      library_ms=bench_ms(lambda: torch.matmul(x, wd)))
-            if M == B:
+            if M > B:
+                r["bound_fp32_cores_ms"] = bound(nbytes, 2 * M * K * N,
+                                                 f32)[0]
+                r["plan"] = prefill_plan(x, wq)
+            else:
                 r["cold_ms"] = bench_cold_ms(
                     lambda w: ops.int8_matmul(x, w, sc), copies(wq))
                 r["library_cold_ms"] = bench_cold_ms(
@@ -440,12 +496,14 @@ def phase_kernels(results):
                 f"{json.dumps(r)}")
     results["int8_matmul"] = dict(
         rows[(B, D, F)], max_abs_err=iworst, pins=ipins,
-        small_m=[dict(K=K, N=N, **rows[(B, K, N)])
-                 for K, N in ((D, D), (D, F), (F, D))],
+        small_m=[dict(K=K, N=N, **rows[(B, K, N)]) for K, N in PROJ_KN],
+        prefill=[dict(M=M, K=K, N=N, **rows[(M, K, N)])
+                 for M in INT8_M[1:] for K, N in PROJ_KN],
         shape=f"M={B} K={D} N={F} fp32 (decode w_up); max_abs_err is "
               f"relative to max|ref|; cold_ms: weights cold in L2; "
-              f"small_m: the three decode shapes; the prefill shapes on "
-              f"the lines above")
+              f"small_m: the three decode shapes; prefill: the M > 8 path "
+              f"at the serve and model phases' prefill M, its bound_ms "
+              f"at the bf16 tensor-core rate for two passes")
     for name in ("flash_attention", "decode_attention"):
         log(f"time {name}: {json.dumps(results[name])}")
 
@@ -473,7 +531,21 @@ def _build_params():
     return p32, p8
 
 
+def _dequantized(tree):
+    """The int8 execution tree with each {"q", "scale"} leaf replaced by
+    q.float() * scale: the plain version's arithmetic (dequantize, then
+    an fp32 torch.matmul), with no int8 kernel on the way."""
+    if isinstance(tree, dict):
+        if set(tree) == {"q", "scale"}:
+            return tree["q"].float() * tree["scale"]
+        return {k: _dequantized(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_dequantized(v) for v in tree)
+    return tree
+
+
 def phase_model(p32, p8):
+    from repro_torch.kernels import ops
     from repro_torch.models.model import decode_step, prefill
     from repro_torch.serving.engine import InferenceEngine
     rng = np.random.default_rng(0)
@@ -483,10 +555,16 @@ def phase_model(p32, p8):
                            dtype=torch.int32, device="cuda")
     vf = torch.as_tensor(T_PREFILL - lens, dtype=torch.int32, device="cuda")
     forced = rng.integers(0, V, (16, B, 1))
+    # The naive run of int8 takes the dequantized tree, so the int8
+    # kernel's prefill and decode paths are held against plain fp32
+    # arithmetic at full width.
     for label, params in (("fp32", p32), ("int8", p8)):
         runs = {}
         for impl in ("cuda", "naive"):
             cfg = _full_width(impl)
+            if impl == "naive" and label == "int8":
+                params = _dequantized(p8)
+            int8_before = ops.launch_counts()["int8_matmul"]
             with torch.no_grad():
                 lg, cache = prefill(params, toks, cfg, S_CACHE,
                                     logits_last_only=True, valid_from=vf)
@@ -500,6 +578,11 @@ def phase_model(p32, p8):
                     steps.append(lg[:, 0])
             runs[impl] = torch.stack(steps)
             del cache
+            if impl == "naive":
+                require(ops.launch_counts()["int8_matmul"] == int8_before,
+                        f"{label}: the naive run launched the int8 kernel")
+        del params
+        torch.cuda.empty_cache()
         a, b = runs["cuda"], runs["naive"]
         require(bool(torch.isfinite(a).all()), f"{label}: non-finite logits")
         worst = 0.0
@@ -509,7 +592,8 @@ def phase_model(p32, p8):
             require(rel <= LOGIT_TOL, f"{label} step {s}: {rel:.2e}")
         log(f"model {label}: stablelm-1.6b full width, prefill B={B} "
             f"T={T_PREFILL} lengths={lens.tolist()} + 16 decode steps, cuda "
-            f"vs naive: max |dlogit|/max|logit| = {worst:.3e} over 17 steps "
+            f"vs naive{' (dequantized weights)' if label == 'int8' else ''}: "
+            f"max |dlogit|/max|logit| = {worst:.3e} over 17 steps "
             f"(tol {LOGIT_TOL}); max|logit|={float(b.abs().max()):.2f}")
 
     # prefill_row backfill against a from-scratch prefill (fp32, cuda).
@@ -554,6 +638,7 @@ def phase_model(p32, p8):
 
 def phase_serve(p32, p8):
     from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_matmul import int8_matmul
     from repro_torch.serving.batching import Request
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.loop import ServingLoop
@@ -575,7 +660,7 @@ def phase_serve(p32, p8):
                          size_bytes=e.resident_bytes)
              for n, e in engines.items()],
             t_threshold=30.0, policy="cnnselect", n_tokens=8)
-        srv.profile_models(prompt_len=64, reps=3)
+        srv.profile_models(prompt_len=T_SERVE, reps=3)
         profs = srv.current_profiles()
         for p in profs:
             log(f"profile {p.name}: mu={p.mu:.2f} ms sigma={p.sigma:.2f} "
@@ -587,7 +672,7 @@ def phase_serve(p32, p8):
             # generous one, so the selection has a real choice to make.
             sla = (mus[0] + mus[1]) / 2 + 40.0 if i % 2 else mus[1] * 3
             req = Request(arrival=0.0, rid=i,
-                          prompt=rng.integers(0, cfg.vocab, 64)
+                          prompt=rng.integers(0, cfg.vocab, T_SERVE)
                           .astype(np.int32),
                           t_input_ms=float(rng.uniform(5.0, 15.0)))
             rec = srv.handle(req, t_sla=sla)
@@ -619,7 +704,10 @@ def phase_serve(p32, p8):
         require(all(len(r.tokens) == r.max_new_tokens for r in b.done),
                 "loop tokens per request")
     require(sum(backfills.values()) > 0, "loop backfilled a freed slot")
-    counts = ops.launch_counts()
+    # int8_matmul counts every launch; int8_matmul_prefill those of its
+    # M > 8 path (prefill and prefill_row of the int8 candidate).
+    counts = dict(ops.launch_counts(),
+                  int8_matmul_prefill=int8_matmul.prefill_launches)
     log(f"serve launches: {json.dumps(counts)} in "
         f"{time.perf_counter() - t_start:.1f} s")
     for name, n in counts.items():
@@ -631,11 +719,39 @@ def phase_serve(p32, p8):
 # Phase: profile (not in the default run)
 # --------------------------------------------------------------------------
 
-def phase_profile(p32, p8):
-    """Wall time of a full-width decode step (B=4, context 64) against
-    the device time its kernels take, from torch.profiler."""
+def _profiled(fn, steps):
+    """(wall ms, device kernel ms, kernel launches, kernel events) per
+    call of fn over `steps` calls under torch.profiler. Wall and device
+    time come from the same (profiled) calls, so wall holds the
+    profiler's overhead. Kernel rows only: an operator row's device time
+    repeats that of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    require(ev, "profiler recorded no device kernels")
+    dev = sum(e.self_device_time_total for e in ev) / 1e3 / steps
+    return wall, dev, sum(e.count for e in ev) / steps, ev
+
+
+def _log_top(label, ev, steps, n):
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:n]:
+        ms = e.self_device_time_total / 1e3 / steps
+        log(f"profile {label}   {ms:8.3f} ms/call  x{e.count / steps:5.0f}  "
+            f"{e.key[:90]}")
+
+
+def phase_profile(p32, p8):
+    """Where the time of a full-width decode step (B=4, context 64) and
+    of a full-width prefill (B=4, T=64 and T=512) goes: host wall time
+    against the device time of its kernels, from torch.profiler."""
     from repro_torch.serving.engine import InferenceEngine
     cfg = _full_width("cuda")
     rng = np.random.default_rng(2)
@@ -643,35 +759,89 @@ def phase_profile(p32, p8):
         eng = InferenceEngine(cfg, params, batch_size=B, max_seq=S_CACHE)
         steps = 8
         with torch.no_grad():
-            logits = eng.run_prefill(rng.integers(0, cfg.vocab, (B, 64))
+            logits = eng.run_prefill(rng.integers(0, cfg.vocab, (B, T_SERVE))
                                      .astype(np.int32))
             nxt = logits.argmax(-1).astype(np.int32)[:, None]
             for _ in range(2):
                 eng.run_decode(nxt)
-            torch.cuda.synchronize()
-            # Wall and device time come from the same (profiled) steps.
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(steps):
-                    eng.run_decode(nxt)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3 / steps
-        # Kernel rows only: an operator row's device time repeats that of
-        # the kernels it launched.
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-        require(ev, "profiler recorded no device kernels")
-        dev = sum(e.self_device_time_total for e in ev) / 1e3 / steps
-        n_k = sum(e.count for e in ev) / steps
+            wall, dev, n_k, ev = _profiled(lambda: eng.run_decode(nxt), steps)
         log(f"profile {label} decode step: wall {wall:.3f} ms, device "
             f"kernels {dev:.3f} ms ({n_k:.0f} launches), device idle "
             f"share {1 - dev / wall:.3f}")
-        for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
-            ms = e.self_device_time_total / 1e3 / steps
-            log(f"profile {label}   {ms:8.3f} ms/step  "
-                f"x{e.count / steps:5.0f}  {e.key[:90]}")
+        _log_top(label, ev, steps, 8)
+        for T in (T_SERVE, T_PREFILL):
+            toks = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+            calls = 3
+            with torch.no_grad():
+                eng.run_prefill(toks)
+                wall, dev, n_k, ev = _profiled(lambda: eng.run_prefill(toks),
+                                               calls)
+            i8 = [e for e in ev if "int8_matmul" in e.key]
+            i8_ms = sum(e.self_device_time_total for e in i8) / 1e3 / calls
+            i8_n = sum(e.count for e in i8) / calls
+            log(f"profile {label} prefill B={B} T={T}: wall {wall:.3f} ms, "
+                f"device kernels {dev:.3f} ms ({n_k:.0f} launches), "
+                f"int8_matmul {i8_ms:.3f} ms ({i8_n:.0f} launches), device "
+                f"idle share {1 - dev / wall:.3f}")
+            _log_top(label, ev, calls, 6)
         del eng
+
+
+# --------------------------------------------------------------------------
+# Phase: tune (not in the default run)
+# --------------------------------------------------------------------------
+
+# Builds of csrc/int8_matmul.cu that the tune phase times: -D values of
+# its tuning macros (ring depths, a forced tile) beside the default.
+TUNE_VARIANTS = {
+    "as built": (),
+    "ring depths swapped": ("-DPF_LARGE_STAGES=3", "-DPF_SMALL_STAGES=2"),
+    "128x128 always": ("-DPF_FORCE_TILE=128",),
+    "64x64 always": ("-DPF_FORCE_TILE=64",),
+}
+
+
+def phase_tune():
+    """Device time of each prefill variant (fp32 x) at the full-width
+    projections and the M of backfill (100) and prefill (B * T), with
+    the weight hot and cold in L2."""
+    import ctypes
+    from repro_torch.kernels import _build, ref as R
+    from repro_torch.kernels.int8_matmul import _ARGTYPES
+    libs = _build.build_variants(
+        [("int8_matmul", f) for f in TUNE_VARIANTS.values()])
+    fns = {}
+    for name, flags in TUNE_VARIANTS.items():
+        fns[name] = libs[("int8_matmul", flags)].int8_matmul_fwd
+        fns[name].argtypes = _ARGTYPES
+        fns[name].restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    stream = torch.cuda.current_stream().cuda_stream
+    for M in (100, B * T_SERVE, 800, B * T_PREFILL):
+        for K, N in PROJ_KN:
+            x = _randn(gen, (M, K), torch.float32)
+            wq = torch.randint(-127, 128, (K, N), generator=gen,
+                               device="cuda", dtype=torch.int8)
+            sc = torch.rand((N,), generator=gen, device="cuda") * 1e-3
+            out = torch.empty((M, N), device="cuda")
+            args = (x.data_ptr(), wq.data_ptr(), sc.data_ptr(),
+                    out.data_ptr(), M, N, K, K, 0, stream)
+            ref = R.int8_matmul_ref(x, wq, sc)
+            tol = INT8_TOL[torch.float32] * float(ref.abs().max())
+            cold = copies(wq)   # a model's prefill reads each weight cold
+            ms = {"hot": {}, "cold": {}}
+            for name, fn in fns.items():
+                require(fn(*args) == 0, f"tune launch {name}")
+                torch.cuda.synchronize()
+                require(float((out - ref).abs().max()) <= tol,
+                        f"tune {name} M={M} K={K} N={N} disagrees")
+                ms["hot"][name] = bench_ms(lambda: fn(*args))
+                ms["cold"][name] = bench_cold_ms(
+                    lambda w: fn(args[0], w.data_ptr(), *args[2:]), cold)
+            del cold
+            torch.cuda.empty_cache()
+            log(f"tune int8 prefill M={M} K={K} N={N} fp32 ms: "
+                f"{json.dumps(ms)}")
 
 
 def main(argv=None):
@@ -699,6 +869,8 @@ def main(argv=None):
     results = {}
     if "kernels" in phases:
         phase_kernels(results)
+    if "tune" in phases:
+        phase_tune()
     counts = None
     if {"model", "serve", "profile"} & set(phases):
         p32, p8 = _build_params()
@@ -717,11 +889,14 @@ def main(argv=None):
                 name=name, route="cuda", source=meta["source"],
                 replaces=meta["replaces"],
                 launches=None if counts is None else counts[name],
+                **({} if counts is None or name != "int8_matmul" else
+                   {"prefill_launches": counts["int8_matmul_prefill"]}),
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
                 pins=r["pins"],
-                **{k: r[k] for k in ("cold_ms", "library_cold_ms", "small_m")
+                **{k: r[k] for k in ("cold_ms", "library_cold_ms", "small_m",
+                                     "prefill")
                    if k in r},
                 shape=r["shape"]))
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,17 +7,48 @@
 // stay float (fp32 or bf16 in, the same type out).
 //
 // What bounds it on this card: at decode (M = batch = 4) each weight byte
-// feeds 2 * M FLOPs, so the call would be bound by the weight bytes; at
-// prefill (M = B * T = 2048) each weight is reused M times and the call
-// is bound by operations. The products stay IEEE fp32 (no TF32), so both
-// run on the CUDA cores. The decode path falls short of the HBM bound on
-// a fixed cost per call and on the SM's instruction work (about nine
-// instructions per weight byte), not on memory traffic (PERF.md).
+// feeds 2 * M FLOPs, so the call would be bound by the weight bytes; it
+// runs on the CUDA cores and falls short of the HBM bound on a fixed
+// cost per call and on the SM's instruction work (about nine
+// instructions per weight byte), not on memory traffic (PERF.md). At
+// prefill (M = B * T = 256 ... 2048) each weight is reused M times and
+// the call is bound by operations: it runs on the tensor cores, in bf16
+// with fp32 sums, two passes for fp32 x (one for bf16 x), so its bound
+// is 2 * 2MKN / 989 TFLOP/s (0.0955 ms at M = 2048, K = 2048, N = 5632)
+// where the CUDA cores' fp32 rate would give 0.705 ms.
+//
+// Why bf16 tensor cores compute this function: every int8 weight is
+// exact in bf16 (8-bit significand) and a bf16 x bf16 product is exact
+// in fp32. An fp32 activation is split into hi = bf16(x) and
+// lo = bf16(x - hi), which leaves a residual under about 2^-16 |x|; both
+// parts go through the same weight fragments into the same fp32
+// accumulators. Emulated on the CPU against the JAX reference
+// (tests/test_torch_kernels.py), one part alone misses the 1e-4 of
+// max|C| that the fp32 checks hold this kernel to, and two parts meet
+// it; on the card, whose tensor cores add their own rounding to the fp32
+// sums, two parts measure up to about 1.3e-5 of max|C| at K = 5632
+// (PERF.md).
 //
 // Design: two paths behind one entry point.
-// - M > SMALL_M: a shared-memory tiled product, 64 x 64 output tile per
-//   block of 256 threads, 4 x 4 outputs per thread, K in steps of 16
-//   (the TPU's sequential K grid axis becomes this loop).
+// - M > SMALL_M (prefill): block tiles of BM x BN outputs (128 x 128 with
+//   8 warps of 64 x 32, or 64 x 64 with 4 warps of 32 x 32), K in stages
+//   of 32 (the TPU's sequential K grid axis becomes this loop). A ring
+//   of 2 (large tile) or 3 (small tile) stages in dynamic shared memory
+//   is filled by 16-byte cp.async copies of x (as loaded, fp32 or bf16)
+//   and of the int8 weights, with zero-fill past M, N and K; the next
+//   stages load while the current one is converted and multiplied. Each
+//   landed stage is converted once per element into bf16 tiles (x into
+//   hi and lo parts, int8 into bf16 through the byte permute of
+//   unpack16, exactly), whose rows are padded by 16 bytes so that
+//   ldmatrix is free of bank conflicts. Warps read their fragments with
+//   ldmatrix (ldmatrix.trans for the k-major weights) and issue
+//   mma.sync m16n8k16 bf16 with fp32 accumulators. The epilogue scales
+//   and writes the tile. The launcher takes the 128 x 128 tile when its
+//   grid gives a block to at least three quarters of the SMs, the
+//   64 x 64 tile otherwise; x or w that is not 16-byte aligned row by
+//   row (lda, N % 16, a base pointer) takes a 64 x 64 variant whose
+//   stages are filled by element and byte loads. No split-K, no
+//   atomics: two calls give the same bits.
 // - M <= SMALL_M (decode): a split-K weight stream, one launch per call.
 //   The grid is (column tiles of 128) x (K slices), and the K slices of
 //   one column tile form a thread-block cluster (at most 8 blocks). The
@@ -40,18 +71,21 @@
 //   byte loads.
 // Both read x through its row stride and mask the ragged edges of M, N
 // and K here, so the wrapper does not pad.
-// Later work: the prefill path on wgmma (bf16 activations, int8 -> bf16
-// in registers) fed by TMA; for the decode path, a smaller fixed cost
-// per call and fewer instructions per weight byte.
+// Later work: the prefill path on wgmma fed by TMA with a producer warp
+// (mma.sync runs below wgmma's peak, and the conversion pass and two
+// block barriers a stage leave the tensor cores idle in between); for
+// the decode path, a smaller fixed cost per call and fewer instructions
+// per weight byte.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int TM = 64, TN = 64, TK = 16, TILE_THREADS = 256;
 constexpr int SMALL_M = 8;
 
 // Small-M geometry.
@@ -66,70 +100,6 @@ constexpr int SM_BLOCKS_PER_SM = 2;               // the grid's aim
 // Rows of x staged at a time. The x chunk (SM_XROWS x MT) and the warps'
 // partial sums (SM_WARPS x MT x SM_TILE_N) share one buffer.
 constexpr int SM_XROWS = SM_WARPS * SM_TILE_N;
-
-template <typename T>
-__global__ void __launch_bounds__(TILE_THREADS)
-int8_matmul_tiled(const T* __restrict__ x, const int8_t* __restrict__ w,
-                  const float* __restrict__ scale, T* __restrict__ out,
-                  int M, int N, int K, long long lda) {
-  __shared__ float as[TK][TM + 4];  // x tile, transposed: as[k][m]
-  __shared__ float bs[TK][TN];      // w tile: bs[k][n]
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int row0 = blockIdx.y * TM, col0 = blockIdx.x * TN;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += TK) {
-#pragma unroll
-    for (int u = 0; u < (TM * TK) / TILE_THREADS; ++u) {
-      const int idx = tid + u * TILE_THREADS;
-      const int m = idx / TK, kk = idx % TK;
-      const int gm = row0 + m, gk = k0 + kk;
-      as[kk][m] = (gm < M && gk < K) ? to_f32(x[gm * lda + gk]) : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < (TK * TN) / TILE_THREADS; ++u) {
-      const int idx = tid + u * TILE_THREADS;
-      const int kk = idx / TN, n = idx % TN;
-      const int gk = k0 + kk, gn = col0 + n;
-      bs[kk][n] = (gk < K && gn < N)
-                      ? static_cast<float>(w[static_cast<long long>(gk) * N + gn])
-                      : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = row0 + ty * 4 + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = col0 + tx * 4 + j;
-      if (gn < N)
-        out[static_cast<long long>(gm) * N + gn] =
-            from_f32<T>(acc[i][j] * scale[gn]);
-    }
-  }
-}
 
 // 16 int8 columns of one weight row, whose first column c is < N. VEC:
 // one 16-byte load (N % 16 == 0 and w 16-byte aligned, so all 16 are
@@ -449,6 +419,426 @@ cudaError_t launch_small_m(const T* x, const int8_t* w, const float* scale,
                                       stream);
 }
 
+// ---------------------------------------------------------------------------
+// M > SMALL_M (prefill): bf16 tensor-core tiles fed by a cp.async ring.
+
+constexpr int PF_BK = 32;      // rows of K in a stage
+constexpr int PF_PAD = 8;      // bf16 pad of a converted row: 16 bytes
+
+// A block tile of BM x BN outputs: WARPS_M x WARPS_N warps, each of
+// MT x NT mma tiles of 16 x 8. MIN_BLOCKS: blocks an SM should hold
+// (caps the registers at 65536 / (THREADS * MIN_BLOCKS)). STAGES: depth
+// of the cp.async ring.
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_, int MIN_BLOCKS_,
+          int STAGES_>
+struct PfTile {
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int MIN_BLOCKS = MIN_BLOCKS_, STAGES = STAGES_;
+  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static_assert(WM % 16 == 0 && WN % 16 == 0, "whole mma tiles, NT even");
+  static_assert(STAGES >= 2, "a stage loads while the last one is used");
+};
+// Ring depths as timed with the weights cold in L2 (chip_smoke.py
+// --phases tune, which builds this file with other -D values): the large
+// tile runs where its grid fills the SMs and is quicker with 2 stages;
+// the small tile runs at the small M of serving, about one block on each
+// SM at N = 2048, where a third stage hides HBM latency.
+#ifndef PF_LARGE_STAGES
+#define PF_LARGE_STAGES 2
+#endif
+#ifndef PF_SMALL_STAGES
+#define PF_SMALL_STAGES 3
+#endif
+// 0: the launcher picks the tile (prefill_plan); 128 or 64: aligned
+// operands always take that tile (a build for timing the other tile).
+#ifndef PF_FORCE_TILE
+#define PF_FORCE_TILE 0
+#endif
+using PfLarge = PfTile<128, 128, 2, 4, 2, PF_LARGE_STAGES>;  // 64 x 32 warps
+using PfSmall = PfTile<64, 64, 2, 2, 4, PF_SMALL_STAGES>;    // 32 x 32 warps
+
+// A block's dynamic shared memory, in bytes: the ring of stages as they
+// are loaded (x [BM][PF_BK] in T, then w [PF_BK][BN] int8), then the
+// converted bf16 tiles (PARTS x [BM][A_LD] of x, [PF_BK][B_LD] of w).
+template <typename T, typename TL>
+struct PfSmem {
+  static constexpr int PARTS = std::is_same<T, float>::value ? 2 : 1;
+  static constexpr int X_STAGE = TL::BM * PF_BK * static_cast<int>(sizeof(T));
+  static constexpr int W_STAGE = PF_BK * TL::BN;
+  static constexpr int A_LD = PF_BK + PF_PAD;
+  static constexpr int B_LD = TL::BN + PF_PAD;
+  static constexpr int A_PART = TL::BM * A_LD * 2;
+  static constexpr int W_RING = TL::STAGES * X_STAGE;
+  static constexpr int A_CVT = W_RING + TL::STAGES * W_STAGE;
+  static constexpr int B_CVT = A_CVT + PARTS * A_PART;
+  static constexpr int BYTES = B_CVT + PF_BK * B_LD * 2;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; the bytes past
+// `src_bytes` are zero-filled (0: nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's newest groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address
+// of row l % 8 of matrix l / 8. trans: each matrix transposed.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// d += a * b on one 16 x 8 x 16 tile: bf16 operands, fp32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
+  unsigned u;
+  memcpy(&u, &v, sizeof(u));
+  return u;
+}
+
+// Fill ring slot `slot` with rows [k0, k0 + PF_BK) of K: x rows from m0,
+// w columns from n0; zeros past M, N and K. VEC: 16-byte cp.async
+// copies (x rows and w rows 16-byte aligned, N % 16 == 0); else element
+// and byte loads, stored as they arrive.
+template <typename T, typename TL, bool VEC>
+__device__ __forceinline__ void pf_load(unsigned char* smem, int slot,
+                                        const T* x, const int8_t* w, int M,
+                                        int N, int K, long long lda, int m0,
+                                        int n0, int k0) {
+  using S = PfSmem<T, TL>;
+  T* xs = reinterpret_cast<T*>(smem + slot * S::X_STAGE);
+  int8_t* ws = reinterpret_cast<int8_t*>(smem + S::W_RING + slot * S::W_STAGE);
+  if constexpr (VEC) {
+    constexpr int XV = 16 / static_cast<int>(sizeof(T));  // x per copy
+    constexpr int XC = TL::BM * PF_BK / XV;
+    constexpr int WC = PF_BK * TL::BN / 16;
+    static_assert(XC % TL::THREADS == 0 && WC % TL::THREADS == 0, "");
+#pragma unroll
+    for (int i = 0; i < XC / TL::THREADS; ++i) {
+      const int c = threadIdx.x + i * TL::THREADS;
+      const int r = c / (PF_BK / XV), kk = c % (PF_BK / XV) * XV;
+      const int gm = m0 + r, gk = k0 + kk;
+      const int n = gm < M ? max(0, min(XV, K - gk)) : 0;
+      cp_async16(xs + r * PF_BK + kk, n > 0 ? x + gm * lda + gk : x,
+                 n * static_cast<int>(sizeof(T)));
+    }
+#pragma unroll
+    for (int i = 0; i < WC / TL::THREADS; ++i) {
+      const int c = threadIdx.x + i * TL::THREADS;
+      const int r = c / (TL::BN / 16), nn = c % (TL::BN / 16) * 16;
+      const int gk = k0 + r, gn = n0 + nn;
+      const bool ok = gk < K && gn < N;
+      cp_async16(ws + r * TL::BN + nn,
+                 ok ? w + static_cast<long long>(gk) * N + gn : w,
+                 ok ? 16 : 0);
+    }
+  } else {
+    // x as raw bits (fp32 or bf16), so a zero is a zero of either type.
+    using Bits = std::conditional_t<sizeof(T) == 4, unsigned, unsigned short>;
+    const Bits* xb = reinterpret_cast<const Bits*>(x);
+    Bits* xsb = reinterpret_cast<Bits*>(xs);
+    static_assert((TL::BM * PF_BK) % TL::THREADS == 0, "");
+#pragma unroll 4
+    for (int i = 0; i < TL::BM * PF_BK / TL::THREADS; ++i) {
+      const int e = threadIdx.x + i * TL::THREADS;
+      const int gm = m0 + e / PF_BK, gk = k0 + e % PF_BK;
+      xsb[e] = gm < M && gk < K ? xb[gm * lda + gk] : Bits(0);
+    }
+#pragma unroll 4
+    for (int i = 0; i < PF_BK * TL::BN / TL::THREADS; ++i) {
+      const int e = threadIdx.x + i * TL::THREADS;
+      const int gk = k0 + e / TL::BN, gn = n0 + e % TL::BN;
+      ws[e] = gk < K && gn < N ? w[static_cast<long long>(gk) * N + gn]
+                               : int8_t(0);
+    }
+  }
+}
+
+// Convert ring slot `slot` into the bf16 tiles, once per element: fp32 x
+// into hi = bf16(x) and lo = bf16(x - hi) (x - hi is exact in fp32),
+// bf16 x as it is, int8 w exactly (unpack16's fp32 of |v| <= 128 has a
+// zero low half, so its high half is the bf16).
+template <typename T, typename TL>
+__device__ __forceinline__ void pf_convert(unsigned char* smem, int slot) {
+  using S = PfSmem<T, TL>;
+  const unsigned char* xs = smem + slot * S::X_STAGE;
+  const unsigned char* ws = smem + S::W_RING + slot * S::W_STAGE;
+  __nv_bfloat16* a = reinterpret_cast<__nv_bfloat16*>(smem + S::A_CVT);
+  __nv_bfloat16* b = reinterpret_cast<__nv_bfloat16*>(smem + S::B_CVT);
+  if constexpr (S::PARTS == 2) {
+    __nv_bfloat16* lo = a + S::A_PART / 2;
+    constexpr int C = TL::BM * PF_BK / 4;
+    static_assert(C % TL::THREADS == 0, "");
+#pragma unroll
+    for (int i = 0; i < C / TL::THREADS; ++i) {
+      const int c = threadIdx.x + i * TL::THREADS;
+      const int r = c / (PF_BK / 4), kk = c % (PF_BK / 4) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(xs + 16 * c);
+      const __nv_bfloat162 h0 = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 h1 = __floats2bfloat162_rn(v.z, v.w);
+      const __nv_bfloat162 l0 = __floats2bfloat162_rn(
+          v.x - __low2float(h0), v.y - __high2float(h0));
+      const __nv_bfloat162 l1 = __floats2bfloat162_rn(
+          v.z - __low2float(h1), v.w - __high2float(h1));
+      *reinterpret_cast<uint2*>(a + r * S::A_LD + kk) =
+          make_uint2(bf16x2_bits(h0), bf16x2_bits(h1));
+      *reinterpret_cast<uint2*>(lo + r * S::A_LD + kk) =
+          make_uint2(bf16x2_bits(l0), bf16x2_bits(l1));
+    }
+  } else {
+    constexpr int C = TL::BM * PF_BK / 8;
+    static_assert(C % TL::THREADS == 0, "");
+#pragma unroll
+    for (int i = 0; i < C / TL::THREADS; ++i) {
+      const int c = threadIdx.x + i * TL::THREADS;
+      const int r = c / (PF_BK / 8), kk = c % (PF_BK / 8) * 8;
+      *reinterpret_cast<uint4*>(a + r * S::A_LD + kk) =
+          *reinterpret_cast<const uint4*>(xs + 16 * c);
+    }
+  }
+  constexpr int C = PF_BK * TL::BN / 16;
+  static_assert(C % TL::THREADS == 0, "");
+#pragma unroll
+  for (int i = 0; i < C / TL::THREADS; ++i) {
+    const int c = threadIdx.x + i * TL::THREADS;
+    const int r = c / (TL::BN / 16), nn = c % (TL::BN / 16) * 16;
+    float f[16];
+    unpack16(*reinterpret_cast<const int4*>(ws + 16 * c), f);
+    unsigned p[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      p[j] = __byte_perm(__float_as_uint(f[2 * j]),
+                         __float_as_uint(f[2 * j + 1]), 0x7632);
+    uint4* dst = reinterpret_cast<uint4*>(b + r * S::B_LD + nn);
+    dst[0] = make_uint4(p[0], p[1], p[2], p[3]);
+    dst[1] = make_uint4(p[4], p[5], p[6], p[7]);
+  }
+}
+
+// The warp's products over the converted stage: per 16 rows of K, the
+// weight fragments of its NT column tiles (ldmatrix.trans of the k-major
+// tile), then for each x part the fragments of its MT row tiles and
+// MT x NT mma into the same fp32 accumulators.
+template <typename T, typename TL>
+__device__ __forceinline__ void pf_mma(const unsigned char* smem,
+                                       float (&acc)[TL::MT][TL::NT][4],
+                                       int wm, int wn, int lane) {
+  using S = PfSmem<T, TL>;
+  const __nv_bfloat16* a =
+      reinterpret_cast<const __nv_bfloat16*>(smem + S::A_CVT);
+  const __nv_bfloat16* b =
+      reinterpret_cast<const __nv_bfloat16*>(smem + S::B_CVT);
+  const int q = lane >> 3;
+#pragma unroll
+  for (int kk = 0; kk < PF_BK; kk += 16) {
+    unsigned bf[TL::NT][2];
+#pragma unroll
+    for (int j = 0; j < TL::NT; j += 2) {
+      // Matrices: k 0-7 and 8-15 of column tile j, then of tile j + 1.
+      unsigned r[4];
+      ldmatrix_x4_trans(r, b + (kk + (q & 1) * 8 + (lane & 7)) * S::B_LD +
+                               wn * TL::WN + (j + (q >> 1)) * 8);
+      bf[j][0] = r[0];
+      bf[j][1] = r[1];
+      bf[j + 1][0] = r[2];
+      bf[j + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int p = 0; p < S::PARTS; ++p) {
+      // Matrices: rows 0-7 and 8-15 at k 0-7, then at k 8-15.
+      unsigned af[TL::MT][4];
+#pragma unroll
+      for (int i = 0; i < TL::MT; ++i)
+        ldmatrix_x4(af[i], a + p * (S::A_PART / 2) +
+                               (wm * TL::WM + i * 16 + (lane & 15)) * S::A_LD +
+                               kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < TL::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < TL::NT; ++j)
+          mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
+    }
+  }
+}
+
+// Two neighbouring outputs; one paired store when the pair is aligned.
+__device__ __forceinline__ void store2(float* o, float v0, float v1,
+                                       bool pair) {
+  if (pair) {
+    *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+  } else {
+    o[0] = v0;
+    o[1] = v1;
+  }
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* o, float v0, float v1,
+                                       bool pair) {
+  if (pair) {
+    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    o[0] = __float2bfloat16(v0);
+    o[1] = __float2bfloat16(v1);
+  }
+}
+
+// Block (blockIdx.y, blockIdx.x) computes C[m0 : m0 + BM, n0 : n0 + BN].
+template <typename T, typename TL, bool VEC>
+__global__ void __launch_bounds__(TL::THREADS, TL::MIN_BLOCKS)
+int8_matmul_prefill(const T* __restrict__ x, const int8_t* __restrict__ w,
+                    const float* __restrict__ scale, T* __restrict__ out,
+                    int M, int N, int K, long long lda) {
+  extern __shared__ __align__(16) unsigned char pf_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / TL::WARPS_N, wn = warp % TL::WARPS_N;
+  const int m0 = blockIdx.y * TL::BM, n0 = blockIdx.x * TL::BN;
+  const int stages = (K + PF_BK - 1) / PF_BK;
+
+  float acc[TL::MT][TL::NT][4];
+#pragma unroll
+  for (int i = 0; i < TL::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < TL::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  // Stage s goes to slot s % STAGES as one commit group (an empty group
+  // past the last stage), so waiting until STAGES - 2 groups are left in
+  // flight waits for stage kt.
+#pragma unroll
+  for (int s = 0; s < TL::STAGES - 1; ++s) {
+    if (s < stages)
+      pf_load<T, TL, VEC>(pf_smem, s, x, w, M, N, K, lda, m0, n0, s * PF_BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < stages; ++kt) {
+    cp_async_wait<TL::STAGES - 2>();
+    // Stage kt has landed for every thread, and every warp is done with
+    // the products of stage kt - 1: its slot and the bf16 tiles are free.
+    __syncthreads();
+    const int next = kt + TL::STAGES - 1;
+    if (next < stages)
+      pf_load<T, TL, VEC>(pf_smem, next % TL::STAGES, x, w, M, N, K, lda, m0,
+                          n0, next * PF_BK);
+    cp_async_commit();
+    pf_convert<T, TL>(pf_smem, kt % TL::STAGES);
+    __syncthreads();
+    pf_mma<T, TL>(pf_smem, acc, wm, wn, lane);
+  }
+
+  // Accumulator e of tile (i, j): row g (+ 8 for e >= 2), column 2t + e % 2.
+  const int g = lane >> 2, t = lane & 3;
+  const bool pair = (N & 1) == 0;
+#pragma unroll
+  for (int j = 0; j < TL::NT; ++j) {
+    const int n = n0 + wn * TL::WN + j * 8 + 2 * t;
+    const float s0 = n < N ? __ldg(scale + n) : 0.0f;
+    const float s1 = n + 1 < N ? __ldg(scale + n + 1) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < TL::MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * TL::WM + i * 16 + g + 8 * h;
+        if (m >= M || n >= N) continue;
+        T* o = out + static_cast<long long>(m) * N + n;
+        const float v0 = acc[i][j][2 * h] * s0;
+        const float v1 = acc[i][j][2 * h + 1] * s1;
+        if (n + 1 < N)
+          store2(o, v0, v1, pair);
+        else
+          o[0] = from_f32<T>(v0);
+      }
+  }
+}
+
+struct PfPlan {
+  int bm, bn;
+  bool vec;
+};
+
+// The prefill variant for these operands: 16-byte copies when x rows and
+// w rows are 16-byte aligned; the 128 x 128 tile when its grid gives a
+// block to at least three quarters of the SMs, else the 64 x 64 tile
+// (chip_smoke.py --phases tune times both at each projection). A build
+// with PF_FORCE_TILE set takes that tile for all aligned operands.
+template <typename T>
+PfPlan prefill_plan(const T* x, const int8_t* w, int M, int N,
+                    long long lda) {
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   lda * static_cast<long long>(sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0 && N % 16 == 0;
+  const long long large =
+      static_cast<long long>((M + PfLarge::BM - 1) / PfLarge::BM) *
+      ((N + PfLarge::BN - 1) / PfLarge::BN);
+  const bool take_large = PF_FORCE_TILE == 0
+                              ? 4 * large >= 3 * sm_count()
+                              : PF_FORCE_TILE == PfLarge::BM;
+  if (vec && take_large)
+    return {PfLarge::BM, PfLarge::BN, true};
+  return {PfSmall::BM, PfSmall::BN, vec};
+}
+
+template <typename T, typename TL, bool VEC>
+cudaError_t launch_prefill(const T* x, const int8_t* w, const float* scale,
+                           T* out, int M, int N, int K, long long lda,
+                           cudaStream_t stream) {
+  constexpr int smem = PfSmem<T, TL>::BYTES;
+  // Above 48 KB a kernel takes dynamic shared memory only after opting
+  // in, once per device.
+  static bool opted_in[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (smem > 48 * 1024 && !(dev < 64 && opted_in[dev])) {
+    err = cudaFuncSetAttribute(int8_matmul_prefill<T, TL, VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) opted_in[dev] = true;
+  }
+  const dim3 grid((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM);
+  int8_matmul_prefill<T, TL, VEC><<<grid, TL::THREADS, smem, stream>>>(
+      x, w, scale, out, M, N, K, lda);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const int8_t* w, const float* scale,
                    void* out, int M, int N, int K, long long lda,
@@ -461,10 +851,15 @@ cudaError_t launch(const void* x, const int8_t* w, const float* scale,
       return launch_small_m<T, 4>(xp, w, scale, op, M, N, K, lda, stream);
     return launch_small_m<T, 8>(xp, w, scale, op, M, N, K, lda, stream);
   }
-  dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM);
-  int8_matmul_tiled<T><<<grid, TILE_THREADS, 0, stream>>>(
-      xp, w, scale, op, M, N, K, lda);
-  return cudaGetLastError();
+  const PfPlan p = prefill_plan(xp, w, M, N, lda);
+  if (!p.vec)
+    return launch_prefill<T, PfSmall, false>(xp, w, scale, op, M, N, K, lda,
+                                             stream);
+  if (p.bm == PfLarge::BM)
+    return launch_prefill<T, PfLarge, true>(xp, w, scale, op, M, N, K, lda,
+                                            stream);
+  return launch_prefill<T, PfSmall, true>(xp, w, scale, op, M, N, K, lda,
+                                          stream);
 }
 
 }  // namespace
@@ -492,5 +887,27 @@ extern "C" int int8_matmul_small_m_plan(int N, int K, int* out) {
   out[1] = p.splits;
   out[2] = p.k_split;
   out[3] = resident_clusters<float, 4, true>(p.splits);
+  return cudaSuccess;
+}
+
+// Rows of x up to which a call takes the small-M (decode) path.
+extern "C" int int8_matmul_small_m_rows() { return SMALL_M; }
+
+// The prefill variant a call with these operands takes (M > SMALL_M):
+// out = {block rows, block columns, 1 for 16-byte copies else 0}.
+extern "C" int int8_matmul_prefill_plan(const void* x, const void* w, int M,
+                                        int N, long long lda, int dtype,
+                                        int* out) {
+  const int8_t* wq = static_cast<const int8_t*>(w);
+  PfPlan p;
+  if (dtype == kFloat32)
+    p = prefill_plan(static_cast<const float*>(x), wq, M, N, lda);
+  else if (dtype == kBFloat16)
+    p = prefill_plan(static_cast<const __nv_bfloat16*>(x), wq, M, N, lda);
+  else
+    return cudaErrorInvalidValue;
+  out[0] = p.bm;
+  out[1] = p.bn;
+  out[2] = p.vec;
   return cudaSuccess;
 }

@@ -9,7 +9,9 @@ The build happens once per process, at first use (or up front through
 `build()`, which starts one nvcc per source, all at once), into
 `build/kernels/` under the repository root. The file name carries a hash
 of the sources and flags, so an edited kernel is rebuilt and a stale
-library is never loaded. A missing nvcc or a failed build raises.
+library is never loaded. `build_variants()` builds one source with extra
+flags (`-D` values of its tuning macros) beside the default library. A
+missing nvcc or a failed build raises.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ SOURCES = ("flash_attention", "decode_attention", "int8_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_LIBS: dict = {}
+_LIBS: dict = {}   # (name, extra flags) -> CDLL
+LOGS: dict = {}   # nvcc's output of each build this process ran
 
 
 def nvcc_path() -> str:
@@ -50,55 +53,67 @@ def nvcc_path() -> str:
         "the CUDA kernels of repro_torch are built from source at first use")
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, flags: tuple = ()) -> Path:
     h = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES, *, verbose: bool = False) -> dict:
     """Build (if needed) and load the named kernels; one nvcc process per
     missing library, all started together. Returns {name: CDLL}."""
-    todo = [n for n in names if n not in _LIBS]
+    libs = build_variants([(n, ()) for n in names], verbose=verbose)
+    return {n: libs[(n, ())] for n in names}
+
+
+def build_variants(variants, *, verbose: bool = False) -> dict:
+    """Build (if needed) and load each (name, extra nvcc flags) pair; one
+    nvcc process per missing library, all started together. With
+    `verbose`, ptxas reports registers and spills, kept in LOGS[name] for
+    the default flags. Returns {(name, flags): CDLL}."""
+    todo = [(n, tuple(f)) for n, f in variants]
+    todo = [v for i, v in enumerate(todo)
+            if v not in _LIBS and v not in todo[:i]]
     procs = []
-    for n in todo:
-        out = _lib_path(n)
+    for n, f in todo:
+        out = _lib_path(n, f)
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *f]
         if verbose:
             cmd += ["-Xptxas", "-v"]
         cmd += ["-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs.append((n, out, tmp, subprocess.Popen(
+        procs.append((n, f, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     errors = []
-    for n, out, tmp, p in procs:
+    for n, f, out, tmp, p in procs:
         log, _ = p.communicate()
+        if not f:
+            LOGS[n] = log
+        what = f"{n}.cu {' '.join(f)}".strip()
         if p.returncode != 0:
-            errors.append(f"nvcc failed for {n}.cu (exit {p.returncode}):\n"
+            errors.append(f"nvcc failed for {what} (exit {p.returncode}):\n"
                           f"{log}")
             continue
         if verbose and log:
-            print(f"[nvcc {n}]\n{log}", flush=True)
+            print(f"[nvcc {what}]\n{log}", flush=True)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
-    for n in todo:
-        _LIBS[n] = ctypes.CDLL(str(_lib_path(n)))
-    return {n: _LIBS[n] for n in names}
+    for n, f in todo:
+        _LIBS[(n, f)] = ctypes.CDLL(str(_lib_path(n, f)))
+    return {(n, tuple(f)): _LIBS[(n, tuple(f))] for n, f in variants}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built at first use."""
-    if name not in _LIBS:
-        build((name,))
-    return _LIBS[name]
+    return build((name,))[name]
 
 
 def check(err: int, what: str) -> None:

@@ -2,9 +2,12 @@
 `csrc/int8_matmul.cu` (the port of the TPU kernel
 `repro/kernels/int8_matmul.py`).
 
-Two paths behind one launch. M > 8 (prefill) runs a tiled product.
+Two paths behind one launch. M > 8 (prefill) runs on the tensor cores:
+bf16 `mma.sync` tiles with fp32 sums, the int8 weights converted to
+bf16 exactly and fp32 x split into two bf16 parts, fed by a `cp.async`
+ring; the kernel's launcher picks the tile (`prefill_plan` reports it).
 M <= 8 (decode) streams the weights split over column tiles and K
-slices; the kernel's launcher sizes that grid from the card's SM count
+slices; the launcher sizes that grid from the card's SM count
 (`small_m_plan` reports it), and the K slices of a column tile, one
 thread-block cluster, add their sums in a fixed order inside the same
 launch. Every call is one launch, and two calls on the same inputs give
@@ -12,7 +15,8 @@ the same bits.
 
 This wrapper only launches the kernel: it takes CUDA tensors and raises
 on anything else. The plain version is `kernels.ref.int8_matmul_ref`;
-`kernels.ops` sends CPU tensors there.
+`kernels.ops` sends CPU tensors there. `int8_matmul.launches` counts
+every launch, `int8_matmul.prefill_launches` those with M > 8.
 """
 
 from __future__ import annotations
@@ -36,6 +40,29 @@ def _fn():
     fn.argtypes = _ARGTYPES
     fn.restype = _C.c_int
     return fn
+
+
+@functools.cache
+def _small_m_rows() -> int:
+    fn = _build.load("int8_matmul").int8_matmul_small_m_rows
+    fn.argtypes = []
+    fn.restype = _C.c_int
+    return fn()
+
+
+def prefill_plan(x, w_q) -> dict:
+    """The prefill path's variant for these operands (M > 8), as the
+    kernel's launcher picks it: block rows and columns of its tile, and
+    whether its stages load by 16-byte copies."""
+    fn = _build.load("int8_matmul").int8_matmul_prefill_plan
+    fn.argtypes = [_C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int,
+                   _C.c_longlong, _C.c_int, _C.POINTER(_C.c_int)]
+    fn.restype = _C.c_int
+    out = (_C.c_int * 3)()
+    _build.check(fn(x.data_ptr(), w_q.data_ptr(), x.shape[0], w_q.shape[1],
+                    x.stride(0), _DTYPES[x.dtype], out),
+                 "int8_matmul_prefill_plan")
+    return {"bm": out[0], "bn": out[1], "vec": bool(out[2])}
 
 
 def small_m_plan(N: int, K: int) -> dict:
@@ -88,7 +115,10 @@ def int8_matmul(x, w_q, w_scale):
                 stream)
     _build.check(err, "int8_matmul")
     int8_matmul.launches += 1
+    if M > _small_m_rows():
+        int8_matmul.prefill_launches += 1
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.prefill_launches = 0

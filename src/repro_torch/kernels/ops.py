@@ -26,6 +26,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    _int8mm.prefill_launches = 0
 
 
 def _on_cpu(*tensors) -> bool:

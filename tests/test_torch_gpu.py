@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref as R
-from repro_torch.kernels.int8_matmul import small_m_plan
+from repro_torch.kernels.int8_matmul import (int8_matmul as kint8,
+                                             prefill_plan, small_m_plan)
 
 pytestmark = pytest.mark.gpu
 
@@ -112,6 +113,20 @@ def test_decode_attention_pins(cuda):
                                             linear=False))
 
 
+def _int8_case(gen, M, K, N, dtype, x_pad=0, w_off=0):
+    x = _randn(gen, (M, K + x_pad), dtype)[:, :K]
+    wq = torch.randint(-127, 128, (K * N + w_off,), generator=gen,
+                       device="cuda", dtype=torch.int8)[w_off:].view(K, N)
+    sc = torch.rand((N,), generator=gen, device="cuda") * 1e-2
+    return x, wq, sc
+
+
+def _assert_int8_close(out, want, dtype):
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * float(
+        want.float().abs().max())
+    assert float((out.float() - want.float()).abs().max()) <= tol
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [
     # (M, N, K, x_pad, w_off): x_pad > 0 reads x as a column slice of a
@@ -130,22 +145,71 @@ def test_decode_attention_pins(cuda):
     (4, 256, 300, 0, 1),        # unaligned weights
     (100, 200, 300, 0, 0),
     (257, 64, 130, 0, 0),
-    (257, 64, 130, 5, 0),       # tiled path, strided x
+    (257, 64, 130, 5, 0),       # prefill path, strided x
+    (100, 33, 70, 0, 0),        # prefill, ragged M, N, K; N % 16 != 0
+    (257, 64, 130, 0, 1),       # prefill, unaligned weights
+    (100, 33, 70, 5, 1),        # prefill, strided x and unaligned weights
+    (130, 96, 101, 3, 0),       # prefill 16-byte copies, K ends mid-copy
+    (300, 160, 1000, 0, 0),     # prefill, K tail past the last stage
 ])
 def test_int8_matmul_matches_plain(cuda, case, dtype):
     M, N, K, x_pad, w_off = case
-    x = _randn(cuda, (M, K + x_pad), dtype)[:, :K]
-    wq = torch.randint(-127, 128, (K * N + w_off,), generator=cuda,
-                       device="cuda", dtype=torch.int8)[w_off:].view(K, N)
-    sc = torch.rand((N,), generator=cuda, device="cuda") * 1e-2
+    x, wq, sc = _int8_case(cuda, M, K, N, dtype, x_pad, w_off)
     before = ops.launch_counts()["int8_matmul"]
     out = ops.int8_matmul(x, wq, sc)
     want = R.int8_matmul_ref(x, wq, sc)
     torch.cuda.synchronize()
-    tol = (1e-4 if dtype == torch.float32 else 1e-2) * float(
-        want.float().abs().max())
-    assert float((out.float() - want.float()).abs().max()) <= tol
+    _assert_int8_close(out, want, dtype)
     assert ops.launch_counts()["int8_matmul"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K, N", [(2048, 2048), (2048, 5632), (5632, 2048)])
+@pytest.mark.parametrize("M", [9, 16, 64, 255, 256, 800, 2048])
+def test_int8_prefill_full_width(cuda, M, K, N, dtype):
+    """The prefill (M > 8) path at the full-width projections of
+    stablelm-1.6b, at the M that backfill (T) and prefill (B * T) give."""
+    x, wq, sc = _int8_case(cuda, M, K, N, dtype)
+    before = kint8.prefill_launches
+    out = ops.int8_matmul(x, wq, sc)
+    want = R.int8_matmul_ref(x, wq, sc)
+    torch.cuda.synchronize()
+    _assert_int8_close(out, want, dtype)
+    assert kint8.prefill_launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case, plan", [
+    # (M, N, K, x_pad, w_off) -> the variant the launcher takes
+    ((2048, 2048, 2048, 0, 0), {"bm": 128, "bn": 128, "vec": True}),
+    ((800, 2048, 2048, 0, 0), {"bm": 128, "bn": 128, "vec": True}),
+    ((256, 2048, 2048, 0, 0), {"bm": 64, "bn": 64, "vec": True}),
+    ((2048, 2048, 2048, 0, 1), {"bm": 64, "bn": 64, "vec": False}),
+    ((256, 64, 130, 5, 0), {"bm": 64, "bn": 64, "vec": False}),
+])
+def test_int8_prefill_each_variant(cuda, case, plan, dtype):
+    """Each prefill variant the launcher can pick, picked and right:
+    the 128 x 128 tile where its grid gives a block to at least three
+    quarters of the SMs (M = 800: 112 blocks of the H100's 132), the
+    64 x 64 tile below that, and the element-load variant for unaligned
+    operands."""
+    M, N, K, x_pad, w_off = case
+    x, wq, sc = _int8_case(cuda, M, K, N, dtype, x_pad, w_off)
+    assert prefill_plan(x, wq) == plan
+    out = ops.int8_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    _assert_int8_close(out, R.int8_matmul_ref(x, wq, sc), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_prefill_deterministic(cuda, dtype):
+    """No split-K and no atomics on the prefill path: repeated calls at
+    the serve phase's prefill M = 256 give the same bits."""
+    x, wq, sc = _int8_case(cuda, 256, 5632, 2048, dtype)
+    first = ops.int8_matmul(x, wq, sc)
+    for _ in range(3):
+        ops.int8_matmul(x[:, :2048], wq[:2048].contiguous(), sc)
+        assert torch.equal(ops.int8_matmul(x, wq, sc), first)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

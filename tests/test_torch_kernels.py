@@ -189,6 +189,41 @@ def test_ops_int8_nonmultiple_matches_jax(rng):
                                rtol=1e-4)
 
 
+def _bf16_parts(x, parts):
+    """fp32 x as `parts` bf16 terms, each the bf16 rounding of what the
+    terms before it left (the kernel's hi and lo for parts=2)."""
+    out, rest = [], x
+    for _ in range(parts):
+        out.append(rest.to(torch.bfloat16).float())
+        rest = rest - out[-1]
+    return out
+
+
+@pytest.mark.parametrize("K", [2048, 5632])
+def test_int8_prefill_split_arithmetic_matches_jax(K, rng):
+    """The prefill kernel's arithmetic, emulated on the CPU: the int8
+    weights exact in bf16, fp32 x as two bf16 parts (hi, lo), bf16 x bf16
+    products summed in fp32, the scale after the sum. It agrees with the
+    JAX reference within 1e-4 of max|ref| at the model's K; one part
+    alone does not, which is why the kernel splits x."""
+    M, N = 64, 256
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    wq, sc = quantize_int8(jnp.asarray(rng.normal(size=(K, N)), jnp.float32),
+                           axis=0)
+    want = np.asarray(JR.int8_matmul_ref(jnp.asarray(x), wq, sc.reshape(-1)))
+    wq = torch.from_numpy(np.array(wq))
+    w = wq.to(torch.bfloat16).float()
+    assert torch.equal(w, wq.float())              # int8 -> bf16 is exact
+    scale = torch.from_numpy(np.array(sc).reshape(-1))
+    tol = 1e-4 * np.abs(want).max()
+    err = {}
+    for parts in (1, 2):
+        acc = sum(p @ w for p in _bf16_parts(torch.from_numpy(x), parts))
+        err[parts] = float(np.abs((acc * scale).numpy() - want).max())
+    assert err[2] <= tol, err
+    assert err[1] > tol, err
+
+
 @pytest.mark.parametrize("case", [
     # (M, N, K, x_pad): the decode path's shapes in small; x_pad > 0 reads
     # x as a column slice of a wider array (row stride K + x_pad).
