@@ -7,12 +7,15 @@
 Phases (each prints its results, one line each):
   build    card name and power limit, torch version, nvcc build of the
            three kernels from src/repro_torch/csrc (with ptxas's
-           registers and spills of the prefill int8 kernels)
+           registers and spills of the flash and prefill int8 kernels)
   kernels  every kernel against its plain PyTorch version on the card at
-           the serving path's full-width shapes (fp32 and bf16; int8 at
-           the decode M and the serve and model phases' prefill M), the
-           bit-exact pins (int8 at decode and at M = 256: two calls give
-           the same bits), and each kernel's time beside its bound, the
+           the serving path's full-width shapes (fp32 and bf16; flash
+           also at the head dims 128 and 256 of yi_9b and gemma2_9b;
+           int8 at the decode M and the serve and model phases' prefill
+           M), the bit-exact pins (flash at each head dim and dtype:
+           valid_from = 0 gives the bits of None; flash and int8: two
+           calls give the same bits), and each kernel's time beside its
+           bound (flash: counted on the rows it attends), the
            plain version's time and one PyTorch library call's time; the
            decode int8 shapes also with their weights cold in L2
   model    full-width stablelm-1.6b (fp32 and int8) through prefill and
@@ -28,7 +31,8 @@ Phases (each prints its results, one line each):
   profile  (only when asked for) where the time of a full-width decode
            step and of a full-width prefill (T = 64 and 512) goes: host
            wall time against device kernel time from torch.profiler,
-           int8_matmul's share, and the kernels that take it
+           int8_matmul's and flash_attention's shares, and the kernels
+           that take it
   tune     (only when asked for) the prefill int8 path's variants side
            by side: the source as it is, each tile's ring 2 <-> 3 stages
            deep, and each tile forced, built from csrc/int8_matmul.cu
@@ -60,11 +64,16 @@ PHASES = ("build", "kernels", "model", "serve")
 EXTRA_PHASES = ("profile", "tune")
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth; fp32 on the
-# CUDA cores, where the attention kernels and the decode int8 path
-# compute; bf16 on the tensor cores, where the prefill int8 path computes
-# (two bf16 passes for fp32 x).
+# CUDA cores, where decode attention and the decode int8 path compute;
+# bf16 on the tensor cores, where the prefill int8 path computes (two
+# bf16 passes for fp32 x).
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# Flash attention's operations bound, on the tensor cores: fp32 inputs
+# at three TF32 passes (3xTF32, the least that holds fp32 accuracy) of
+# 495 TFLOP/s; bf16 inputs at one bf16 pass of 989 TFLOP/s (the kernel
+# runs P V twice, on p's hi and lo bf16 parts, so it cannot reach it).
+FLASH_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 # Copies of a weight to rotate through for an L2-cold time: well over
 # the H100's 50 MB L2, as a decode step streams 1.2 GB of weights.
 COLD_BYTES = 256 << 20
@@ -77,6 +86,11 @@ T_SERVE = 64            # prompt length of the serve phase
 INT8_M = (B, B * T_SERVE, B * T_PREFILL)
 PROJ_KN = ((D, D), (D, F), (F, D))   # (K, N): q/k/v/o, gate/up, down
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# Attention heads of the flash checks and times (Hq, KV, hd): stablelm-
+# 1.6b's, and the reference configs' at head dims 128 and 256, from
+# src/repro/configs/yi_9b.py and gemma2_9b.py.
+FLASH_HEADS = {"stablelm_1_6b": (H, H, HD), "yi_9b": (32, 4, 128),
+               "gemma2_9b": (16, 8, 256)}
 INT8_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 LOGIT_TOL = 1e-4
 
@@ -144,11 +158,11 @@ def copies(t):
     return [t.clone() for _ in range(-(-COLD_BYTES // t.nbytes))]
 
 
-def bound(nbytes, flops, dtype):
+def bound(nbytes, flops, dtype, peaks=PEAK_FLOPS):
     """Least time (ms) for the work: bytes over HBM rate or operations
     over the peak of the input type, whichever is larger."""
     tb = nbytes / PEAK_BYTES_S * 1e3
-    tf = flops / PEAK_FLOPS[dtype] * 1e3
+    tf = flops / peaks[dtype] * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -179,15 +193,20 @@ def phase_build():
         f"instructions, {ffma} FFMA: {4 * ops / max(ffma, 1):.2f} "
         f"instructions per weight byte; SM clock max {clock}; "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
-    if "int8_matmul" in _build.LOGS:
-        usage = ptxas_usage(_build.LOGS["int8_matmul"], "int8_matmul_prefill")
-        require(usage, "no int8_matmul_prefill kernel in ptxas's output")
+    for lib, function in (("int8_matmul", "int8_matmul_prefill"),
+                          ("flash_attention", "flash_attention_kernel")):
+        if lib not in _build.LOGS:
+            log(f"ptxas {function}: registers and spills not reported, as "
+                f"{_build._lib_path(lib)} was built by an earlier process "
+                f"(delete it to see them)")
+            continue
+        usage = ptxas_usage(_build.LOGS[lib], function)
+        require(usage, f"no {function} kernel in ptxas's output")
         for name, regs, spills in usage:
             log(f"ptxas {name}: {regs} registers, {spills}")
-    else:
-        log(f"ptxas int8_matmul_prefill: registers and spills not reported, "
-            f"as {_build._lib_path('int8_matmul')} was built by an earlier "
-            f"process (delete it to see them)")
+            if lib == "flash_attention":
+                require(spills == "0 bytes spill stores, 0 bytes spill "
+                                  "loads", f"ptxas {name}: {spills}")
     return smi[0]
 
 
@@ -199,11 +218,16 @@ def ptxas_usage(nvcc_log, function):
         name = part.split("'", 1)[0]
         if function not in name:
             continue
+        dtype = "float" if f"{function}If" in name else "bf16"
         m = re.search(r"PfTileILi(\d+)ELi(\d+)E.*?Lb([01])E", name)
+        f = re.search(rf"{function}I(?:f|13__nv_bfloat16)Li(\d+)ELb([01])E",
+                      name)
         if m:
-            dtype = "float" if f"{function}If" in name else "bf16"
             name = (f"{function}<{dtype}, {m[1]}x{m[2]}, "
                     f"{'16-byte copies' if m[3] == '1' else 'element loads'}>")
+        elif f:
+            name = (f"{function}<{dtype}, hd {f[1]}, "
+                    f"{'16-byte copies' if f[2] == '1' else 'element loads'}>")
         regs = re.search(r"Used (\d+) registers", part)
         spills = re.search(r"\d+ bytes spill stores, \d+ bytes spill loads",
                            part)
@@ -254,13 +278,35 @@ def _close(out, ref, tol):
 
 
 def _flash_cases():
+    """(heads, case name, shape and masks) of the flash checks: the
+    stablelm heads through every mask, the yi_9b and gemma2_9b heads
+    with softcap on, a ragged valid_from and a window, and the gemma2_9b
+    heads at a long context (S = 4096, where the fp32 error's margin to
+    its tolerance is thinnest at S = 512)."""
     T = T_PREFILL
-    yield "plain", dict(T=T, KV=H, vf=None)
-    yield "vf mid/edge/full", dict(T=T, KV=H, vf=[0, 37, 64, T])
-    yield "window", dict(T=T, KV=H, vf=[0, 37, 64, T], window=128)
-    yield "softcap", dict(T=T, KV=H, vf=[0, 37, 64, T], cap=30.0)
-    yield "T not a block multiple", dict(T=T - 3, KV=H, vf=[0, 5, 100, 1])
-    yield "GQA rep=4", dict(T=T, KV=8, vf=[0, 37, 64, 300])
+    yield "stablelm_1_6b", "plain", dict(T=T, KV=H, vf=None)
+    yield "stablelm_1_6b", "vf mid/edge/full", dict(T=T, KV=H,
+                                                    vf=[0, 37, 64, T])
+    yield "stablelm_1_6b", "window", dict(T=T, KV=H, vf=[0, 37, 64, T],
+                                          window=128)
+    yield "stablelm_1_6b", "softcap", dict(T=T, KV=H, vf=[0, 37, 64, T],
+                                           cap=30.0)
+    yield "stablelm_1_6b", "T not a block multiple", dict(
+        T=T - 3, KV=H, vf=[0, 5, 100, 1])
+    yield "stablelm_1_6b", "GQA rep=4", dict(T=T, KV=8, vf=[0, 37, 64, 300])
+    for heads in ("yi_9b", "gemma2_9b"):
+        yield heads, "vf + softcap", dict(vf=[0, 37, 64, T], cap=50.0, T=T)
+        yield heads, "window + softcap, T not a block multiple", dict(
+            vf=[0, 5, 100, 1], cap=50.0, window=128, T=T - 3)
+    yield "gemma2_9b", "long S, vf + softcap", dict(B=2, T=4096,
+                                                    vf=[0, 1500], cap=50.0)
+
+
+def _flash_inputs(gen, dtype, Hq, KV, hd, T=T_PREFILL, Bn=B):
+    """q (Bn, T, Hq, hd), k and v (Bn, T, KV, hd): the model layout."""
+    return (_randn(gen, (Bn, T, Hq, hd), dtype),
+            _randn(gen, (Bn, T, KV, hd), dtype),
+            _randn(gen, (Bn, T, KV, hd), dtype))
 
 
 def _decode_pos(kind, cpos):
@@ -295,12 +341,12 @@ def phase_kernels(results):
 
     # -- flash attention ---------------------------------------------------
     worst = 0.0
+    errs = {}   # the largest error at each heads and dtype
     for dtype in (torch.float32, torch.bfloat16):
-        for name, c in _flash_cases():
-            T, KV = c["T"], c["KV"]
-            q = _randn(gen, (B, T, H, HD), dtype)
-            k = _randn(gen, (B, T, KV, HD), dtype)
-            v = _randn(gen, (B, T, KV, HD), dtype)
+        for heads, name, c in _flash_cases():
+            Hq, KV, hd = FLASH_HEADS[heads]
+            T, KV, Bn = c["T"], c.get("KV", KV), c.get("B", B)
+            q, k, v = _flash_inputs(gen, dtype, Hq, KV, hd, T, Bn)
             vf = vft(c["vf"])
             kw = dict(window=c.get("window", 0), softcap=c.get("cap", 0.0))
             out = ops.flash_attention_btHd(q, k, v, vf, **kw)
@@ -311,19 +357,40 @@ def phase_kernels(results):
             err, ok = _close(out, ref, TOL[dtype])
             if dtype == torch.float32:
                 worst = max(worst, err)
-            log(f"flash {str(dtype)[6:]} {name}: T={T} Hq={H} KV={KV} "
-                f"hd={HD} vf={c['vf']} max_abs_err={err:.3e} "
-                f"tol={TOL[dtype]} {'ok' if ok else 'FAIL'}")
-            require(ok, f"flash {name} {dtype}")
+            errs[heads, dtype] = max(errs.get((heads, dtype), 0.0), err)
+            # bf16: both sides round an fp32 result once, so elements
+            # differ only where the two fp32 results straddle a rounding
+            # boundary; the share shows how close they were.
+            neq = "" if dtype == torch.float32 else (
+                f" unequal_to_plain={float((out != ref).float().mean()):.5f}")
+            log(f"flash {str(dtype)[6:]} {heads} heads, {name}: B={Bn} "
+                f"T={T} Hq={Hq} KV={KV} hd={hd} window={kw['window']} "
+                f"softcap={kw['softcap']} vf={c['vf']} max_abs_err={err:.3e} "
+                f"tol={TOL[dtype]}{neq} {'ok' if ok else 'FAIL'}")
+            require(ok, f"flash {heads} {name} {dtype}")
             if c["vf"] is not None and c["vf"][-1] >= T:
                 require(not out[-1].any(), "flash fully masked row != 0")
-    q = _randn(gen, (B, T_PREFILL, H, HD), torch.float32)
-    k = _randn(gen, (B, T_PREFILL, H, HD), torch.float32)
-    v = _randn(gen, (B, T_PREFILL, H, HD), torch.float32)
-    pin = torch.equal(ops.flash_attention_btHd(q, k, v),
-                      ops.flash_attention_btHd(q, k, v, vft([0] * B)))
-    log(f"flash pin valid_from=0 bit-identical to None: {pin}")
-    require(pin, "flash valid_from=0 pin")
+            del q, k, v, out, ref
+    # Pins at each heads and dtype: valid_from = 0 gives the bits of
+    # None, and two calls (another shape's call between) the same bits.
+    fpins = {}
+    vf = vft([0, 37, 64, 300])
+    for dtype in (torch.float32, torch.bfloat16):
+        for heads, (Hq, KV, hd) in FLASH_HEADS.items():
+            q, k, v = _flash_inputs(gen, dtype, Hq, KV, hd)
+            zero = torch.equal(
+                ops.flash_attention_btHd(q, k, v, softcap=50.0),
+                ops.flash_attention_btHd(q, k, v, vft([0] * B), softcap=50.0))
+            first = ops.flash_attention_btHd(q, k, v, vf, softcap=50.0)
+            ops.flash_attention_btHd(q[:, :100], k[:, :100], v[:, :100])
+            same = torch.equal(ops.flash_attention_btHd(q, k, v, vf,
+                                                        softcap=50.0), first)
+            fpins[heads, dtype] = {"valid_from_zero_bit_identical": zero,
+                                   "two_calls_bit_identical": same}
+            log(f"flash pins {heads} heads hd={hd} {str(dtype)[6:]}: "
+                f"valid_from=0 bit-identical to None: {zero}; two calls "
+                f"bit-identical: {same}")
+            require(zero and same, f"flash pins {heads} {dtype}")
 
     # -- decode attention --------------------------------------------------
     dworst = 0.0
@@ -401,28 +468,56 @@ def phase_kernels(results):
     f32 = torch.float32
     lens = [T_PREFILL, 300, 129, 37]      # ragged left-padded prefill
     vf = vft([T_PREFILL - n for n in lens])
-    q = _randn(gen, (B, T_PREFILL, H, HD), f32)
-    k = _randn(gen, (B, T_PREFILL, H, HD), f32)
-    v = _randn(gen, (B, T_PREFILL, H, HD), f32)
     pairs = sum(sum(max(0, i - (T_PREFILL - n) + 1) for i in range(T_PREFILL))
                 for n in lens)
-    nbytes = 4 * q.numel() * 4 + B * 4
-    tb, by = bound(nbytes, 4 * HD * H * pairs, f32)
     pos_q = torch.arange(T_PREFILL, device="cuda")
     bool_mask = ((pos_q[None, :] <= pos_q[:, None])[None]
                  & (pos_q[None, None, :] >= vf[:, None, None]))[:, None]
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    frows = []
+    for dtype in (f32, torch.bfloat16):
+        for heads, (Hq, KV, hd) in FLASH_HEADS.items():
+            q, k, v = _flash_inputs(gen, dtype, Hq, KV, hd)
+            # Two products of 2 FLOPs a multiply-add over the attended
+            # pairs. Bytes: the rows of q, k and v from valid_from on (a
+            # query row below it attends nothing, a key below it is never
+            # read) once, the whole output written once, valid_from.
+            flops = 4 * hd * Hq * pairs
+            nbytes = (sum(lens) * (Hq + 2 * KV) + B * T_PREFILL * Hq) \
+                * hd * q.element_size() + B * 4
+            tb, by = bound(nbytes, flops, dtype, FLASH_PEAK_FLOPS)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
+                v.transpose(1, 2)
+            r = dict(
+                heads=heads, dtype=str(dtype)[6:], hd=hd,
+                max_abs_err=errs[heads, dtype], tol=TOL[dtype],
+                pins=fpins[heads, dtype],
+                ms=bench_ms(lambda: ops.flash_attention_btHd(q, k, v, vf)),
+                plain_ms=bench_ms(lambda: R.flash_attention_ref(
+                    qt, kt, vt, valid_from=vf)),
+                bound_ms=tb, bound_by=by,
+                # The same work on the CUDA cores in fp32.
+                bound_fp32_cores_ms=bound(nbytes, flops, f32)[0],
+                # SDPA reads K and V unexpanded (GQA through enable_gqa).
+                library_ms=bench_ms(lambda: torch.nn.functional
+                                    .scaled_dot_product_attention(
+                                        qt, kt, vt, attn_mask=bool_mask,
+                                        enable_gqa=Hq != KV)),
+                shape=f"{heads} heads: B={B} T=S={T_PREFILL} Hq={Hq} "
+                      f"KV={KV} hd={hd} {str(dtype)[6:]} "
+                      f"valid_from={[T_PREFILL - n for n in lens]}")
+            del q, k, v, qt, kt, vt
+            torch.cuda.empty_cache()
+            frows.append(r)
+            log(f"time flash_attention {r['shape']}: {json.dumps(r)}")
+    main = frows[0]   # stablelm heads, fp32: the main path's shape
     results["flash_attention"] = dict(
-        max_abs_err=worst, pins={"valid_from_zero_bit_identical": pin},
-        ms=bench_ms(lambda: ops.flash_attention_btHd(q, k, v, vf)),
-        plain_ms=bench_ms(lambda: R.flash_attention_ref(qt, kt, vt,
-                                                        valid_from=vf)),
-        bound_ms=tb, bound_by=by,
-        library_ms=bench_ms(lambda: torch.nn.functional
-                            .scaled_dot_product_attention(
-                                qt, kt, vt, attn_mask=bool_mask)),
-        shape=f"B={B} T=S={T_PREFILL} Hq=KV={H} hd={HD} fp32 "
-              f"valid_from={[T_PREFILL - n for n in lens]}")
+        main, max_abs_err=worst, rows=frows,
+        pins={p: all(r["pins"][p] for r in frows) for p in main["pins"]},
+        shape=main["shape"] + "; max_abs_err: the largest over every fp32 "
+              "check; bound_ms: bytes (q, k and v from valid_from on) or "
+              "operations at three TF32 passes (fp32) or one bf16 pass on "
+              "the tensor cores; rows: each heads and dtype (timed without "
+              "softcap, so SDPA computes the same function)")
 
     cpos = T_PREFILL + 16
     q = _randn(gen, (B, 1, H, HD), f32)
@@ -776,13 +871,17 @@ def phase_profile(p32, p8):
                 eng.run_prefill(toks)
                 wall, dev, n_k, ev = _profiled(lambda: eng.run_prefill(toks),
                                                calls)
-            i8 = [e for e in ev if "int8_matmul" in e.key]
-            i8_ms = sum(e.self_device_time_total for e in i8) / 1e3 / calls
-            i8_n = sum(e.count for e in i8) / calls
+            share = {}
+            for kname in ("int8_matmul", "flash_attention"):
+                kev = [e for e in ev if kname in e.key]
+                share[kname] = (
+                    sum(e.self_device_time_total for e in kev) / 1e3 / calls,
+                    sum(e.count for e in kev) / calls)
             log(f"profile {label} prefill B={B} T={T}: wall {wall:.3f} ms, "
                 f"device kernels {dev:.3f} ms ({n_k:.0f} launches), "
-                f"int8_matmul {i8_ms:.3f} ms ({i8_n:.0f} launches), device "
-                f"idle share {1 - dev / wall:.3f}")
+                + ", ".join(f"{n} {ms:.3f} ms ({c:.0f} launches)"
+                            for n, (ms, c) in share.items())
+                + f", device idle share {1 - dev / wall:.3f}")
             _log_top(label, ev, calls, 6)
         del eng
 
@@ -859,7 +958,11 @@ def main(argv=None):
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
                  "False); this script runs only on the GPU")
     sys.path.insert(0, str(ROOT / "src"))
-    import repro_torch
+    try:
+        import repro_torch
+    except ImportError:
+        sys.exit(f"chip_smoke: no src/repro_torch under {ROOT}; run it from "
+                 f"a checkout of the repository")
     if Path(repro_torch.__file__).resolve().parents[2] != ROOT:
         sys.exit(f"chip_smoke: repro_torch from {repro_torch.__file__}, not "
                  f"from this checkout ({ROOT})")
@@ -895,8 +998,9 @@ def main(argv=None):
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
                 pins=r["pins"],
-                **{k: r[k] for k in ("cold_ms", "library_cold_ms", "small_m",
-                                     "prefill")
+                **{k: r[k] for k in ("bound_fp32_cores_ms", "cold_ms",
+                                     "library_cold_ms", "small_m", "prefill",
+                                     "rows")
                    if k in r},
                 shape=r["shape"]))
         print(json.dumps({"kernels": kernels}), flush=True)

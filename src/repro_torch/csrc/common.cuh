@@ -1,10 +1,13 @@
 // Shared helpers of the hand-written Hopper kernels: element loads and
-// stores for the two input types, and the masking constants that the
-// kernels share with their plain versions in kernels/ref.py.
+// stores for the two input types, the masking constants that the
+// kernels share with their plain versions in kernels/ref.py, and the PTX
+// wrappers of the tensor-core kernels (cp.async, ldmatrix, bf16 mma.sync).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 // Finite "minus infinity" of the masked logits. A row whose running max
 // is still below NEG_INF / 2 has never seen an attendable key.
@@ -29,4 +32,83 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 __device__ __forceinline__ float softcap_f32(float s, float cap) {
   return cap != 0.0f ? cap * tanhf(s / cap) : s;
+}
+
+// Lets `kernel` launch with `bytes` of dynamic shared memory on the
+// current device. Above 48 KB a kernel takes it only after opting in,
+// once per device; `opted_in` is that kernel's record of the devices
+// (a static array of its launcher).
+template <typename Kernel>
+cudaError_t smem_opt_in(Kernel kernel, int bytes, bool (&opted_in)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || bytes <= 48 * 1024 ||
+      (dev < 64 && opted_in[dev]))
+    return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 64) opted_in[dev] = true;
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// PTX wrappers of the tensor-core kernels (int8_matmul_prefill,
+// flash_attention).
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; the bytes past
+// `src_bytes` are zero-filled (0: nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's newest groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address
+// of row l % 8 of matrix l / 8. trans: each matrix transposed.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// d += a * b on one 16 x 8 x 16 tile: bf16 operands, fp32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
+  unsigned u;
+  memcpy(&u, &v, sizeof(u));
+  return u;
 }

@@ -477,63 +477,6 @@ struct PfSmem {
   static constexpr int BYTES = B_CVT + PF_BK * B_LD * 2;
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; the bytes past
-// `src_bytes` are zero-filled (0: nothing is read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's newest groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address
-// of row l % 8 of matrix l / 8. trans: each matrix transposed.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// d += a * b on one 16 x 8 x 16 tile: bf16 operands, fp32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
-  unsigned u;
-  memcpy(&u, &v, sizeof(u));
-  return u;
-}
-
 // Fill ring slot `slot` with rows [k0, k0 + PF_BK) of K: x rows from m0,
 // w columns from n0; zeros past M, N and K. VEC: 16-byte cp.async
 // copies (x rows and w rows 16-byte aligned, N % 16 == 0); else element
@@ -820,19 +763,10 @@ cudaError_t launch_prefill(const T* x, const int8_t* w, const float* scale,
                            T* out, int M, int N, int K, long long lda,
                            cudaStream_t stream) {
   constexpr int smem = PfSmem<T, TL>::BYTES;
-  // Above 48 KB a kernel takes dynamic shared memory only after opting
-  // in, once per device.
   static bool opted_in[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err =
+      smem_opt_in(int8_matmul_prefill<T, TL, VEC>, smem, opted_in);
   if (err != cudaSuccess) return err;
-  if (smem > 48 * 1024 && !(dev < 64 && opted_in[dev])) {
-    err = cudaFuncSetAttribute(int8_matmul_prefill<T, TL, VEC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) opted_in[dev] = true;
-  }
   const dim3 grid((N + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM);
   int8_matmul_prefill<T, TL, VEC><<<grid, TL::THREADS, smem, stream>>>(
       x, w, scale, out, M, N, K, lda);

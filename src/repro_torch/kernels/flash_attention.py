@@ -2,6 +2,14 @@
 `csrc/flash_attention.cu` (the port of the TPU kernel
 `repro/kernels/flash_attention.py`).
 
+Both products run on the tensor cores through `mma.sync`: 3xTF32 for
+fp32 inputs (hi and lo tf32 parts of q * scale, k, p and v, three
+products each); bf16 mma for bf16 inputs (one pass for Q K^T, two for
+P V, whose fp32 p is split into bf16 hi and lo parts). Key and value
+tiles come through a `cp.async` ring. Any head_dim up to
+`MAX_HEAD_DIM`. Rows that are not 16-byte aligned take an element-load
+variant. No atomics: two calls give the same bits.
+
 This wrapper only launches the kernel: it takes CUDA tensors and raises
 on anything else. The plain version is `kernels.ref.flash_attention_ref`;
 `kernels.ops` sends CPU tensors there.
@@ -20,7 +28,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _C = ctypes
 _ARGTYPES = ([_C.c_void_p] * 5 + [_C.c_int] * 6 + [_C.c_longlong] * 9
              + [_C.c_float] * 2 + [_C.c_int] * 2 + [_C.c_void_p])
-MAX_HEAD_DIM = 64
+MAX_HEAD_DIM = 256
 
 
 @functools.cache

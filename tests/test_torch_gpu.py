@@ -40,6 +40,23 @@ def _assert_close(out, ref, tol):
     (4, 77, 4, 2, 32, 0, 0.0, [0, 7, 32, 77]),
     (2, 96, 4, 1, 16, 24, 30.0, [3, 40]),
     (1, 40, 2, 2, 20, 0, 50.0, [9]),
+    (2, 200, 8, 2, 128, 0, 0.0, [0, 57]),
+    (1, 130, 4, 2, 256, 64, 50.0, [5]),
+    (2, 70, 4, 2, 256, 0, 0.0, [0, 70]),
+    # Every instantiated head dim (32, 64, 128, 256) with GQA, a window,
+    # softcap and ragged valid_from, T no multiple of the 64-row q tile.
+    (2, 100, 4, 4, 32, 16, 0.0, [0, 33]),
+    (2, 129, 8, 2, 64, 32, 50.0, [1, 65]),
+    (3, 150, 8, 4, 128, 40, 30.0, [0, 64, 150]),
+    (2, 161, 16, 8, 256, 48, 50.0, [0, 97]),
+    # Head dims padded up in shared memory (to 64, 128, 256); in bf16
+    # the rows of hd 36 and 100 (72 and 200 bytes) are not 16-byte
+    # aligned and take element loads.
+    (1, 75, 4, 2, 36, 8, 0.0, [3]),
+    (2, 90, 6, 3, 100, 0, 20.0, [0, 17]),
+    (1, 66, 2, 1, 200, 0, 50.0, [0]),
+    # gemma2_9b's heads at a long context.
+    (2, 4096, 16, 8, 256, 0, 50.0, [0, 1500]),
 ])
 def test_flash_attention_matches_plain(cuda, case, dtype):
     B, T, Hq, KV, hd, win, cap, vf = case
@@ -58,6 +75,41 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
         assert not out[-1].any()
 
 
+@pytest.mark.parametrize("dtype, hd", [
+    (torch.float32, 20),      # 80-byte rows: 16-byte copies
+    (torch.bfloat16, 20),     # 40-byte rows: element loads
+    (torch.bfloat16, 64),     # 128-byte rows: 16-byte copies
+])
+def test_flash_attention_each_variant(cuda, dtype, hd):
+    """The launcher takes 16-byte copies only where every row is 16-byte
+    aligned; bf16 at hd = 20 (40 bytes a row) takes the element-load
+    variant. Each agrees with the plain version."""
+    q = _randn(cuda, (2, 90, 4, hd), dtype)
+    k = _randn(cuda, (2, 90, 2, hd), dtype)
+    v = _randn(cuda, (2, 90, 2, hd), dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    vf = torch.tensor([0, 33], dtype=torch.int32, device="cuda")
+    out = ops.flash_attention_btHd(q, k, v, vf, softcap=30.0)
+    want = R.flash_attention_ref(qt, kt, vt, cap=30.0,
+                                 valid_from=vf).transpose(1, 2)
+    torch.cuda.synchronize()
+    _assert_close(out, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_attention_deterministic(cuda, hd, dtype):
+    """No atomics and no split over keys: two calls give the same bits,
+    also with another shape's call between them."""
+    q = _randn(cuda, (2, 300, 8, hd), dtype)
+    k = _randn(cuda, (2, 300, 2, hd), dtype)
+    vf = torch.tensor([0, 41], dtype=torch.int32, device="cuda")
+    first = ops.flash_attention_btHd(q, k, k, vf, softcap=50.0)
+    ops.flash_attention_btHd(q[:, :77], k[:, :77], k[:, :77])
+    assert torch.equal(ops.flash_attention_btHd(q, k, k, vf, softcap=50.0),
+                       first)
+
+
 def test_flash_attention_pins(cuda):
     q = _randn(cuda, (2, 70, 4, 64), torch.float32)
     zeros = torch.zeros(2, dtype=torch.int32, device="cuda")
@@ -67,6 +119,54 @@ def test_flash_attention_pins(cuda):
     got = ops.flash_attention(q, q, q, pos, pos, zeros + 109)
     want = ops.flash_attention_btHd(q, q, q, zeros + 9)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_flash_attention_valid_from_zero_pin(cuda, hd, dtype):
+    """valid_from = 0 gives the bits of valid_from = None at every head
+    dim, with GQA and softcap."""
+    q = _randn(cuda, (2, 150, 8, hd), dtype)
+    k = _randn(cuda, (2, 150, 4, hd), dtype)
+    v = _randn(cuda, (2, 150, 4, hd), dtype)
+    zeros = torch.zeros(2, dtype=torch.int32, device="cuda")
+    assert torch.equal(ops.flash_attention_btHd(q, k, v, softcap=30.0),
+                       ops.flash_attention_btHd(q, k, v, zeros, softcap=30.0))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_flash_attention_bf16_keeps_p_fp32(cuda, hd):
+    """bf16 inputs: P V takes p in fp32, as the reference does (it
+    multiplies fp32 p by v cast to fp32), not p rounded to bf16.
+
+    The output's own rounding to bf16 (2^-9 of it) hides a bf16-rounded
+    p on random inputs, so the keys come in pairs built to cancel: key
+    2i + 1 is key 2i with one element a bf16 step or two larger, and its value
+    is minus that of key 2i. An odd query row then attends whole pairs,
+    and its output, the sum of (p_2i - p_2i+1) v_2i, is about 2^-11 of
+    the terms. The bf16 cast of so small a number is below 1e-5, so the
+    output there shows P V as it was before the cast: within the fp32
+    tolerance of the fp32-p plain version, where the same plain version
+    with p rounded to bf16 misses it by far more than the kernel does."""
+    bf = torch.bfloat16
+    B, T, H = 2, 128, 4
+    q = _randn(cuda, (B, T, H, hd), bf)
+    k = _randn(cuda, (B, T // 2, H, hd), bf).repeat_interleave(2, dim=1)
+    k[:, 1::2, :, 0] = (k[:, 1::2, :, 0].float() * (1 + 2 ** -7)).to(bf)
+    v = _randn(cuda, (B, T // 2, H, hd), bf)
+    v = torch.stack([v, -v], 2).reshape(B, T, H, hd)
+    out = ops.flash_attention_btHd(q, k, v).transpose(1, 2).float()
+    qt, kt, vt = (x.transpose(1, 2).float() for x in (q, k, v))
+    want = R.flash_attention_ref(qt, kt, vt)   # fp32 throughout
+    s = qt @ kt.transpose(-1, -2) * hd ** -0.5
+    causal = torch.ones(T, T, dtype=torch.bool, device="cuda").tril()
+    p = torch.softmax(torch.where(causal, s, R.NEG_INF), -1)
+    rounded = (p.to(bf).float() @ vt).to(bf).float()
+    torch.cuda.synchronize()
+    err = (out - want)[:, :, 1::2].abs().max()
+    err_rounded = (rounded - want)[:, :, 1::2].abs().max()
+    assert err <= TOL[torch.float32], (err, err_rounded)
+    assert err_rounded > 20 * err, (err, err_rounded)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -7,6 +7,9 @@ valid_from / dtype matrix of tests/test_kernels.py.
 Tolerances as tests/test_kernels.py: 2e-5 in fp32, 2e-2 in bf16 (both
 sides compute in fp32 and round to the input dtype at the end)."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from repro.kernels import ref as JR
 from repro.quant import quantize_int8
 from repro_torch.kernels import ops, ref as R
 from repro_torch.kernels.decode_attention import decode_attention as kdecode
+from repro_torch.kernels.flash_attention import _check_args as flash_check
 from repro_torch.kernels.flash_attention import flash_attention as kflash
 from repro_torch.kernels.int8_matmul import int8_matmul as kint8
 
@@ -29,6 +33,8 @@ SHAPES = [
     (1, 4, 1, 32, 8, 16, 0.0),     # MQA + window
     (2, 8, 2, 48, 32, 0, 50.0),    # softcap
     (1, 2, 2, 40, 64, 24, 30.0),   # window + softcap
+    (2, 4, 2, 32, 128, 0, 0.0),    # hd 128, GQA
+    (1, 4, 2, 24, 256, 8, 50.0),   # hd 256, GQA + window + softcap 50
 ]
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -154,6 +160,23 @@ def test_ops_flash_nonmultiple_length_gqa_matches_jax(rng):
                                rtol=3e-5)
 
 
+@pytest.mark.parametrize("hd, window", [(128, 0), (256, 16)])
+def test_ops_flash_wide_head_dims_match_jax(hd, window, rng):
+    """The head dims of yi_9b (128) and gemma2_9b (256), beyond the old
+    cap of 64: GQA, softcap and a ragged valid_from (one row starts past
+    its block's first key), T = 40 no multiple of the JAX block."""
+    q, k, v = _btHd(rng, 2, 40, 4, 2, hd)
+    vf = np.asarray([0, 13], np.int32)
+    want = jops.flash_attention_btHd(*map(jnp.asarray, (q, k, v)),
+                                     jnp.asarray(vf), window=window,
+                                     softcap=50.0, block_q=16, block_k=16)
+    got = ops.flash_attention_btHd(*map(torch.from_numpy, (q, k, v)),
+                                   torch.from_numpy(vf), window=window,
+                                   softcap=50.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=TOL["float32"], rtol=TOL["float32"])
+
+
 @pytest.mark.parametrize("ring", [False, True])
 def test_ops_decode_unwritten_slots_match_jax(ring, rng):
     """pos = -1 slots (never written) are masked; S = 40 is no multiple
@@ -197,6 +220,181 @@ def _bf16_parts(x, parts):
         out.append(rest.to(torch.bfloat16).float())
         rest = rest - out[-1]
     return out
+
+
+def _tf32(x):
+    """fp32 x rounded to tf32 (10 stored mantissa bits), to nearest with
+    ties away from zero, as the kernel's cvt.rna.tf32.f32 rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the flash kernel computes it for fp32 inputs: each operand
+    split into hi = tf32(x) and lo = tf32(x - hi), three products."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_bf16(a, b):
+    """a @ b as one bf16 pass computes it: operands rounded to bf16."""
+    return a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+
+
+def _flash_emulated(q, k, v, vf, bk, qk, pv):
+    """The flash kernel's arithmetic on the CPU, causal: an online
+    softmax over key tiles of bk, the scaled s of a tile from
+    `qk(q, k_tile)`, each tile's P V computed fresh by `pv(p, v_tile)`
+    and then added to the rescaled accumulator; rows that see no key
+    give zeros."""
+    B, H, T, hd = q.shape
+    acc = torch.zeros_like(q)
+    m = torch.full((B, H, T), R.NEG_INF)
+    l = torch.zeros((B, H, T))
+    pos_q = torch.arange(T)[:, None]
+    for k0 in range(0, T, bk):
+        kt, vt = k[:, :, k0:k0 + bk], v[:, :, k0:k0 + bk]
+        pos_k = torch.arange(k0, k0 + kt.shape[2])[None]
+        mask = (pos_k <= pos_q)[None] & (pos_k[None] >= vf[:, None, None])
+        s = torch.where(mask[:, None], qk(q, kt), R.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + pv(p, vt)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return torch.where((m > R.NEG_INF / 2)[..., None], out, 0.0)
+
+
+# The key tile that csrc/flash_attention.cu ships at each head dim
+# (FlashSmem::BK: 32 keys up to hd 128, 16 at hd 256).
+FLASH_TILES = [(64, 32), (128, 32), (256, 16)]
+FLASH_CU = Path(R.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
+
+
+def _shipped_bk(hd):
+    """FlashSmem::BK at head dim hd, read from the kernel's source."""
+    m = re.search(r"int BK = HD <= (\d+) \? (\d+) : (\d+);",
+                  FLASH_CU.read_text())
+    assert m, "FlashSmem::BK not found in flash_attention.cu"
+    return int(m[2]) if hd <= int(m[1]) else int(m[3])
+
+
+def _flash_split_case(rng, hd, dtype):
+    """q, k, v (B=2, H=2, T=512; bf16 values for dtype bfloat16) and a
+    ragged valid_from as torch CPU tensors, and the JAX reference's fp32
+    output on them (no rounding to the input dtype)."""
+    B, H, T = 2, 2, 512
+    q, k, v = (np.array(jnp.asarray(rng.normal(size=(B, H, T, hd)),
+                                    getattr(jnp, dtype)).astype(jnp.float32))
+               for _ in range(3))
+    vf = np.asarray([0, 211], np.int32)
+    want = np.asarray(jax_flash_ref(*map(jnp.asarray, (q, k, v)), window=0,
+                                    cap=0.0, valid_from=jnp.asarray(vf)))
+    return tuple(map(torch.from_numpy, (q, k, v, vf))), want
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd, bk", FLASH_TILES)
+def test_flash_split_arithmetic_matches_jax(hd, bk, dtype, rng):
+    """The flash kernel's arithmetic, emulated on the CPU at T = 512,
+    causal, ragged valid_from, with the key tile the kernel ships for
+    this head dim (32 keys at hd 64 and 128, 16 at hd 256): an online
+    softmax whose P V is summed a tile at a time into fresh fragments and
+    added to the rescaled accumulator.
+
+    fp32 inputs: 3xTF32 products for Q K^T and P V. They agree with the
+    JAX reference within 2e-5 + 2e-5 |ref|; one bf16 pass does not,
+    which is why fp32 inputs take three TF32 passes.
+
+    bf16 inputs: Q K^T of the bf16 values (exact products, fp32 sums),
+    scaled after; P V with fp32 p split into bf16 hi + lo parts, each
+    times the exact bf16 v. Before the output's rounding that agrees with
+    the reference (fp32 p times fp32 v) within the fp32 tolerance, and
+    after it within the bf16 one, 2e-2. p rounded to bf16 once misses the
+    fp32 tolerance: that error is what the second P V pass removes."""
+    assert _shipped_bk(hd) == bk
+    (q, k, v, vf), want = _flash_split_case(rng, hd, dtype)
+    tol = TOL["float32"] * (1 + np.abs(want))
+    if dtype == "float32":
+        qk = lambda q, kt: _mm_3xtf32(q * hd ** -0.5, kt.transpose(-1, -2))
+        one = lambda q, kt: _mm_bf16(q * hd ** -0.5, kt.transpose(-1, -2))
+        arith = {"kernel": (qk, _mm_3xtf32), "one bf16 pass": (one, _mm_bf16)}
+    else:
+        qk = lambda q, kt: (q @ kt.transpose(-1, -2)) * hd ** -0.5
+        arith = {name: (qk, lambda p, vt, parts=parts: sum(
+                     x @ vt for x in reversed(_bf16_parts(p, parts))))
+                 for name, parts in (("kernel", 2), ("p rounded", 1))}
+    got = {name: _flash_emulated(q, k, v, vf, bk, *fns).numpy()
+           for name, fns in arith.items()}
+    worst = {name: float((np.abs(g - want) / tol).max())
+             for name, g in got.items()}
+    assert worst["kernel"] <= 1.0, worst
+    assert min(w for n, w in worst.items() if n != "kernel") > 1.0, worst
+    if dtype == "bfloat16":
+        out = torch.from_numpy(got["kernel"]).to(torch.bfloat16).float()
+        np.testing.assert_allclose(out.numpy(), want, atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+
+
+def _mm_3xtf32_chained(a, b, toward_zero):
+    """a @ b as the kernel chains its 3xTF32 mma.sync calls: for each 8
+    columns of a, lo*hi, hi*lo and hi*hi into one fp32 accumulator. Each
+    mma's products are exact; its sum is rounded to fp32 toward zero
+    (`toward_zero`, a model of the tensor cores' accumulation, which
+    does not round to nearest) or to nearest (IEEE)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    c = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 8):
+        cols = slice(k0, k0 + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            exact = c.double() + x[..., cols].double() @ y[..., cols, :].double()
+            c = exact.float()
+            if toward_zero:
+                c = torch.where(c.double().abs() > exact.abs(),
+                                torch.nextafter(c, torch.zeros_like(c)), c)
+    return c
+
+
+@pytest.mark.parametrize("hd, bk", FLASH_TILES)
+def test_flash_3xtf32_sums_toward_zero(hd, bk, rng):
+    """Where the fp32 kernel's error beyond the IEEE emulation above comes
+    from. With each mma's sum rounded toward zero, Q K^T, a chain of
+    3 hd / 8 mma into one accumulator, at least doubles the error of the
+    same chain rounded to nearest, and the error still meets 2e-5; P V,
+    whose fresh fragments a key tile chain only 3 bk / 8 mma, moves it
+    less than Q K^T does."""
+    assert _shipped_bk(hd) == bk
+    (q, k, v, vf), want = _flash_split_case(rng, hd, "float32")
+    tol = TOL["float32"] * (1 + np.abs(want))
+    qk = lambda rz: lambda q, kt: _mm_3xtf32_chained(
+        q * hd ** -0.5, kt.transpose(-1, -2), rz)
+    pv = lambda rz: lambda p, vt: _mm_3xtf32_chained(p, vt, rz)
+    outs = {name: _flash_emulated(q, k, v, vf, bk, qk(a), pv(b)).numpy()
+            for name, a, b in (("nearest", False, False),
+                               ("toward zero in Q K^T", True, False),
+                               ("toward zero in P V", False, True),
+                               ("toward zero", True, True))}
+    err = {name: float(np.abs(o - want).max()) for name, o in outs.items()}
+    worst = float((np.abs(outs["toward zero"] - want) / tol).max())
+    assert worst <= 1.0, (worst, err)
+    assert err["toward zero in Q K^T"] >= 2 * err["nearest"], err
+    assert err["toward zero in P V"] < err["toward zero in Q K^T"], err
+
+
+def test_flash_wrapper_head_dim_limit():
+    """The wrapper takes every head_dim up to 256 (the reference configs
+    need 64, 128 and 256) and refuses more, before any launch."""
+    for hd in (20, 64, 128, 256):
+        q = torch.empty(1, 4, 8, hd, device="meta")
+        kv = torch.empty(1, 2, 8, hd, device="meta")
+        flash_check(q, kv, kv)
+    q = torch.empty(1, 4, 8, 257, device="meta")
+    with pytest.raises(ValueError, match="head_dim 257 > 256"):
+        flash_check(q, q, q)
 
 
 @pytest.mark.parametrize("K", [2048, 5632])
