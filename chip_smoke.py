@@ -7,17 +7,21 @@
 Phases (each prints its results, one line each):
   build    card name and power limit, torch version, nvcc build of the
            three kernels from src/repro_torch/csrc (with ptxas's
-           registers and spills of the flash and prefill int8 kernels)
+           registers and spills of the flash, decode and prefill int8
+           kernels; a spill in flash or decode fails the run)
   kernels  every kernel against its plain PyTorch version on the card at
            the serving path's full-width shapes (fp32 and bf16; flash
-           also at the head dims 128 and 256 of yi_9b and gemma2_9b;
+           and decode also at the heads of yi_9b and gemma2_9b, decode
+           checked at those of qwen3_moe_235b and recurrentgemma_2b too;
            int8 at the decode M and the serve and model phases' prefill
-           M), the bit-exact pins (flash at each head dim and dtype:
-           valid_from = 0 gives the bits of None; flash and int8: two
-           calls give the same bits), and each kernel's time beside its
-           bound (flash: counted on the rows it attends), the
-           plain version's time and one PyTorch library call's time; the
-           decode int8 shapes also with their weights cold in L2
+           M), the bit-exact pins (flash and decode at each heads and
+           dtype: valid_from = 0 gives the bits of None, two calls give
+           the same bits; decode: the linear skip gives those of the full
+           scan; int8: two calls), and each kernel's time beside its
+           bound (attention: counted on the rows it attends), the plain
+           version's time and one PyTorch library call's time; decode
+           (with its split plan) and the decode int8 shapes also with
+           their K/V or weights cold in L2
   model    full-width stablelm-1.6b (fp32 and int8) through prefill and
            teacher-forced decode on the "cuda" path against the "naive"
            path (for int8: on the dequantized weights, so no int8
@@ -31,8 +35,8 @@ Phases (each prints its results, one line each):
   profile  (only when asked for) where the time of a full-width decode
            step and of a full-width prefill (T = 64 and 512) goes: host
            wall time against device kernel time from torch.profiler,
-           int8_matmul's and flash_attention's shares, and the kernels
-           that take it
+           decode_attention's, int8_matmul's and flash_attention's
+           shares, and the kernels that take it (ms a step)
   tune     (only when asked for) the prefill int8 path's variants side
            by side: the source as it is, each tile's ring 2 <-> 3 stages
            deep, and each tile forced, built from csrc/int8_matmul.cu
@@ -91,6 +95,17 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # src/repro/configs/yi_9b.py and gemma2_9b.py.
 FLASH_HEADS = {"stablelm_1_6b": (H, H, HD), "yi_9b": (32, 4, 128),
                "gemma2_9b": (16, 8, 256)}
+# Heads of the decode checks: the flash heads, checked and timed, and the
+# most q heads per kv head of the reference configs, checked only
+# (src/repro/configs/qwen3_moe_235b.py, rep 16; recurrentgemma_2b.py,
+# rep 10 at hd 256).
+DECODE_HEADS = dict(FLASH_HEADS, qwen3_moe_235b=(64, 4, 128),
+                    recurrentgemma_2b=(10, 1, 256))
+# The decode main shape: the ragged prefill's rows (valid_from = T_PREFILL
+# - lengths) 16 tokens on, and the profile's decode step's context.
+DECODE_CPOS, DECODE_VF = T_PREFILL + 16, [0, 212, 383, 475]
+DECODE_CTX = 70
+L2_BYTES = 50 << 20
 INT8_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 LOGIT_TOL = 1e-4
 
@@ -194,7 +209,8 @@ def phase_build():
         f"instructions per weight byte; SM clock max {clock}; "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     for lib, function in (("int8_matmul", "int8_matmul_prefill"),
-                          ("flash_attention", "flash_attention_kernel")):
+                          ("flash_attention", "flash_attention_kernel"),
+                          ("decode_attention", "decode_attention_kernel")):
         if lib not in _build.LOGS:
             log(f"ptxas {function}: registers and spills not reported, as "
                 f"{_build._lib_path(lib)} was built by an earlier process "
@@ -204,7 +220,7 @@ def phase_build():
         require(usage, f"no {function} kernel in ptxas's output")
         for name, regs, spills in usage:
             log(f"ptxas {name}: {regs} registers, {spills}")
-            if lib == "flash_attention":
+            if lib != "int8_matmul":
                 require(spills == "0 bytes spill stores, 0 bytes spill "
                                   "loads", f"ptxas {name}: {spills}")
     return smi[0]
@@ -309,27 +325,68 @@ def _flash_inputs(gen, dtype, Hq, KV, hd, T=T_PREFILL, Bn=B):
             _randn(gen, (Bn, T, KV, hd), dtype))
 
 
-def _decode_pos(kind, cpos):
-    s = torch.arange(S_CACHE, device="cuda")
+def _decode_pos(kind, cpos, S=S_CACHE):
+    """Stored positions of a cache of S slots at cache_pos cpos: linear
+    (slot == position) or a ring (slot != position); -1 past cpos."""
+    s = torch.arange(S, device="cuda")
     if kind == "linear":
         pos = s
     else:   # ring: slot != position
-        pos = (s + 17) % (S_CACHE - 3)
+        pos = (s + 17) % (S - 3)
     return torch.where(pos <= cpos, pos, -1).to(torch.int32)
 
 
 def _decode_cases():
+    """(heads, case name, shape and masks) of the decode checks: at the
+    stablelm heads those of earlier runs (cache_pos 700, linear and ring,
+    a window, softcap, GQA rep 4); at every heads the main shape, the
+    profile step's context (a row with nothing valid), a ring with a
+    window and softcap, cache_pos and valid_from on the edges of the
+    launch's chunks (`edge`), and a ring whose whole chunks hold only
+    unwritten slots; the gemma2_9b heads also at S = 4096."""
     cpos = 700
     for kind in ("linear", "ring"):
-        yield f"{kind}", dict(kind=kind, cpos=cpos, KV=H, vf=None)
-        yield f"{kind} vf", dict(kind=kind, cpos=cpos, KV=H,
-                                 vf=[0, 37, 512, cpos + 1])
-    yield "ring window", dict(kind="ring", cpos=cpos, KV=H,
-                              vf=[0, 37, 512, 600], window=256)
-    yield "linear softcap", dict(kind="linear", cpos=cpos, KV=H,
-                                 vf=[0, 37, 512, 600], cap=30.0)
-    yield "linear GQA rep=4", dict(kind="linear", cpos=cpos, KV=8,
-                                   vf=[0, 37, 512, 600])
+        yield "stablelm_1_6b", kind, dict(kind=kind, cpos=cpos, vf=None)
+        yield "stablelm_1_6b", f"{kind} vf", dict(
+            kind=kind, cpos=cpos, vf=[0, 37, 512, cpos + 1])
+    yield "stablelm_1_6b", "ring window", dict(
+        kind="ring", cpos=cpos, vf=[0, 37, 512, 600], window=256)
+    yield "stablelm_1_6b", "linear softcap", dict(
+        kind="linear", cpos=cpos, vf=[0, 37, 512, 600], cap=30.0)
+    yield "stablelm_1_6b", "linear GQA rep=4", dict(
+        kind="linear", cpos=cpos, KV=8, vf=[0, 37, 512, 600])
+    for heads in DECODE_HEADS:
+        yield heads, "main", dict(kind="linear", cpos=DECODE_CPOS,
+                                  vf=DECODE_VF)
+        yield heads, f"context {DECODE_CTX}", dict(
+            kind="linear", cpos=DECODE_CTX, vf=[0, 5, 33, DECODE_CTX + 1])
+        yield heads, "ring window softcap", dict(
+            kind="ring", cpos=DECODE_CPOS, vf=[0, 37, 300, 500], window=256,
+            cap=50.0)
+        yield heads, "cache_pos ends a chunk", dict(kind="linear", edge=1)
+        yield heads, "cache_pos starts a chunk", dict(kind="linear", edge=2)
+        yield heads, "ring, chunks of unwritten slots", dict(
+            kind="ring", cpos=DECODE_CPOS, vf=[0, 37, 300, 500], holes=True)
+    yield "gemma2_9b", "long S", dict(kind="linear", B=2, S=4096, cpos=4000,
+                                      vf=[0, 1500])
+
+
+def _edge_masks(chunk, edge):
+    """cache_pos and valid_from on chunk edges: with edge = 1 cache_pos is
+    a chunk's last slot, with edge = 2 the next chunk's first; valid_from
+    starts rows at chunk starts, at cache_pos (one valid slot) and past
+    it (nothing valid). The cache holds more than three chunks."""
+    e = 2 * chunk   # the third chunk's first slot
+    if edge == 1:
+        return e - 1, [0, e - chunk, e - 1, e]
+    return e, [e - chunk, e, e + 1, 0]
+
+
+def _decode_inputs(gen, dtype, Hq, KV, hd, S=S_CACHE, Bn=B):
+    """q (Bn, 1, Hq, hd), k and v (Bn, S, KV, hd): the model layout."""
+    return (_randn(gen, (Bn, 1, Hq, hd), dtype),
+            _randn(gen, (Bn, S, KV, hd), dtype),
+            _randn(gen, (Bn, S, KV, hd), dtype))
 
 
 def phase_kernels(results):
@@ -393,46 +450,72 @@ def phase_kernels(results):
             require(zero and same, f"flash pins {heads} {dtype}")
 
     # -- decode attention --------------------------------------------------
+    from repro_torch.kernels.decode_attention import decode_plan
     dworst = 0.0
+    derrs = {}   # the largest error at each heads and dtype
     for dtype in (torch.float32, torch.bfloat16):
-        for name, c in _decode_cases():
-            KV, cpos = c["KV"], c["cpos"]
-            q = _randn(gen, (B, 1, H, HD), dtype)
-            k = _randn(gen, (B, S_CACHE, KV, HD), dtype)
-            v = _randn(gen, (B, S_CACHE, KV, HD), dtype)
-            pos = _decode_pos(c["kind"], cpos)
-            vf = vft(c["vf"])
+        for heads, name, c in _decode_cases():
+            Hq, KV, hd = DECODE_HEADS[heads]
+            KV, Bn, S = c.get("KV", KV), c.get("B", B), c.get("S", S_CACHE)
+            q, k, v = _decode_inputs(gen, dtype, Hq, KV, hd, S, Bn)
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            linear = c["kind"] == "linear"
+            cpos, vfl = c.get("cpos", DECODE_CPOS), c.get("vf")
+            plan = decode_plan(q[:, 0], kt, vt)
+            if "edge" in c:
+                cpos, vfl = _edge_masks(plan["chunk"], c["edge"])
+            pos = _decode_pos(c["kind"], cpos, S)
+            if c.get("holes"):   # chunks 1 and 2 hold only unwritten slots
+                pos[plan["chunk"]:3 * plan["chunk"]] = -1
+            vf = vft(vfl)
             kw = dict(window=c.get("window", 0), softcap=c.get("cap", 0.0))
-            out = ops.decode_attention(q, k, v, pos, cpos, vf,
-                                       linear=c["kind"] == "linear", **kw)
-            ref = R.decode_attention_ref(
-                q[:, 0], k.transpose(1, 2), v.transpose(1, 2), pos, cpos,
-                cap=kw["softcap"], window=kw["window"], valid_from=vf)
+            out = ops.decode_attention(q, k, v, pos, cpos, vf, linear=linear,
+                                       **kw)
+            ref = R.decode_attention_ref(q[:, 0], kt, vt, pos, cpos,
+                                         cap=kw["softcap"],
+                                         window=kw["window"], valid_from=vf)
             err, ok = _close(out[:, 0], ref, TOL[dtype])
             if dtype == torch.float32:
                 dworst = max(dworst, err)
-            log(f"decode {str(dtype)[6:]} {name}: S={S_CACHE} Hq={H} "
-                f"KV={KV} hd={HD} cache_pos={cpos} vf={c['vf']} "
-                f"max_abs_err={err:.3e} tol={TOL[dtype]} "
+            derrs[heads, dtype] = max(derrs.get((heads, dtype), 0.0), err)
+            log(f"decode {str(dtype)[6:]} {heads} heads, {name}: B={Bn} "
+                f"S={S} Hq={Hq} KV={KV} hd={hd} cache_pos={cpos} vf={vfl} "
+                f"window={kw['window']} softcap={kw['softcap']} "
+                f"max_abs_err={err:.3e} tol={TOL[dtype]} plan={plan} "
                 f"{'ok' if ok else 'FAIL'}")
-            require(ok, f"decode {name} {dtype}")
-            if c["vf"] is not None and c["vf"][-1] > cpos:
-                require(not out[-1].any(), "decode fully masked row != 0")
-    q = _randn(gen, (B, 1, H, HD), torch.float32)
-    k = _randn(gen, (B, S_CACHE, H, HD), torch.float32)
-    v = _randn(gen, (B, S_CACHE, H, HD), torch.float32)
-    pos = _decode_pos("linear", 700)
-    pin0 = torch.equal(ops.decode_attention(q, k, v, pos, 700, linear=True),
-                       ops.decode_attention(q, k, v, pos, 700, vft([0] * B),
-                                            linear=True))
-    vf = vft([33, 300, 0, 650])
-    pin1 = torch.equal(ops.decode_attention(q, k, v, pos, 700, vf,
-                                            linear=True),
-                       ops.decode_attention(q, k, v, pos, 700, vf,
-                                            linear=False))
-    log(f"decode pin valid_from=0 bit-identical to None: {pin0}")
-    log(f"decode pin linear tile skip bit-identical to full scan: {pin1}")
-    require(pin0 and pin1, "decode pins")
+            require(ok, f"decode {heads} {name} {dtype}")
+            for row in range(Bn):   # nothing valid: exact zeros
+                if vfl is not None and not bool(ref[row].any()):
+                    require(not out[row].any(),
+                            f"decode {heads} {name}: row {row} with nothing "
+                            f"valid != 0")
+            del q, k, v, kt, vt, out, ref
+    # Pins at each heads and dtype: valid_from = 0 gives the bits of None,
+    # the linear skip those of the full scan, and two calls (another
+    # shape's call between) the same bits.
+    dpins = {}
+    pos = _decode_pos("linear", DECODE_CPOS)
+    vf = vft(DECODE_VF)
+    for dtype in (torch.float32, torch.bfloat16):
+        for heads, (Hq, KV, hd) in DECODE_HEADS.items():
+            q, k, v = _decode_inputs(gen, dtype, Hq, KV, hd)
+            call = lambda vf_, linear: ops.decode_attention(
+                q, k, v, pos, DECODE_CPOS, vf_, linear=linear, softcap=50.0)
+            zero = torch.equal(call(None, True), call(vft([0] * B), True))
+            first = call(vf, True)
+            skip = torch.equal(first, call(vf, False))
+            ops.decode_attention(q[:2], k[:2, :100], v[:2, :100], pos[:100],
+                                 70)
+            same = torch.equal(call(vf, True), first)
+            dpins[heads, dtype] = {
+                "valid_from_zero_bit_identical": zero,
+                "linear_skip_bit_identical_to_full_scan": skip,
+                "two_calls_bit_identical": same}
+            log(f"decode pins {heads} heads {str(dtype)[6:]}: valid_from=0 "
+                f"bit-identical to None: {zero}; linear skip bit-identical "
+                f"to full scan: {skip}; two calls bit-identical: {same}")
+            require(zero and skip and same, f"decode pins {heads} {dtype}")
+            del q, k, v
 
     # -- int8 matmul -------------------------------------------------------
     iworst = 0.0
@@ -519,32 +602,70 @@ def phase_kernels(results):
               "the tensor cores; rows: each heads and dtype (timed without "
               "softcap, so SDPA computes the same function)")
 
-    cpos = T_PREFILL + 16
-    q = _randn(gen, (B, 1, H, HD), f32)
-    k = _randn(gen, (B, S_CACHE, H, HD), f32)
-    v = _randn(gen, (B, S_CACHE, H, HD), f32)
-    pos = _decode_pos("linear", cpos)
-    n_valid = sum(cpos + 1 - (T_PREFILL - n) for n in lens)
-    nbytes = n_valid * H * HD * 4 * 2 + 2 * q.numel() * 4 + S_CACHE * 4
-    tb, by = bound(nbytes, 4 * HD * H * n_valid, f32)
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    dmask = ((pos >= 0) & (pos <= cpos))[None, :] & (pos[None, :]
-                                                     >= vf[:, None])
+    drows = []
+    for dtype in (f32, torch.bfloat16):
+        for heads, cpos, Bn, S in (
+                [(h, c, B, S_CACHE) for h in FLASH_HEADS
+                 for c in (DECODE_CPOS, DECODE_CTX)]
+                + [("gemma2_9b", 4000, 2, 4096)]):
+            Hq, KV, hd = FLASH_HEADS[heads]
+            vfl = (DECODE_VF if cpos == DECODE_CPOS else
+                   [0, 1500] if S == 4096 else [0] * Bn)
+            q, k, v = _decode_inputs(gen, dtype, Hq, KV, hd, S, Bn)
+            pos = _decode_pos("linear", cpos, S)
+            vf = vft(vfl)
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            es = q.element_size()
+            # Bytes: the K and V rows attended (from each row's valid_from
+            # to cache_pos), q and the output once, the stored positions
+            # of those slots, valid_from. Operations: two products of 2
+            # FLOPs a multiply-add per attended row and q head.
+            n_valid = sum(cpos + 1 - x for x in vfl)
+            nbytes = (n_valid * KV * hd * 2 + 2 * Bn * Hq * hd) * es \
+                + (cpos + 1 - min(vfl)) * 4 + Bn * 4
+            tb, by = bound(nbytes, 4 * hd * Hq * n_valid, dtype)
+            dmask = ((pos >= 0) & (pos <= cpos))[None, :] & (
+                pos[None, :] >= vf[:, None])
+            # Copies of K and V whose attended rows fill the L2 4 times
+            # over (at most 4 GB of copies).
+            n = max(2, min(-(-4 * L2_BYTES // (n_valid * KV * hd * 2 * es)),
+                           (4 << 30) // (k.nbytes + v.nbytes)))
+            kv = [(k.clone(), v.clone()) for _ in range(n)]
+            r = dict(
+                heads=heads, dtype=str(dtype)[6:], cache_pos=cpos,
+                max_abs_err=derrs[heads, dtype], tol=TOL[dtype],
+                pins=dpins[heads, dtype],
+                ms=bench_ms(lambda: ops.decode_attention(
+                    q, k, v, pos, cpos, vf, linear=True)),
+                cold_ms=bench_cold_ms(lambda c: ops.decode_attention(
+                    q, c[0], c[1], pos, cpos, vf, linear=True), kv),
+                plain_ms=bench_ms(lambda: R.decode_attention_ref(
+                    q[:, 0], kt, vt, pos, cpos, valid_from=vf)),
+                bound_ms=tb, bound_by=by,
+                # SDPA reads K and V unexpanded (GQA through enable_gqa).
+                library_ms=bench_ms(lambda: torch.nn.functional
+                                    .scaled_dot_product_attention(
+                                        q.transpose(1, 2), kt, vt,
+                                        attn_mask=dmask[:, None, None, :],
+                                        enable_gqa=Hq != KV)),
+                plan=decode_plan(q[:, 0], kt, vt),
+                shape=f"{heads} heads: B={Bn} S={S} cache_pos={cpos} "
+                      f"Hq={Hq} KV={KV} hd={hd} {str(dtype)[6:]} linear "
+                      f"valid_from={vfl}")
+            del q, k, v, kt, vt, kv
+            torch.cuda.empty_cache()
+            drows.append(r)
+            log(f"time decode_attention {r['shape']}: {json.dumps(r)}")
+    main = drows[0]   # stablelm heads, fp32, cache_pos 528
     results["decode_attention"] = dict(
-        max_abs_err=dworst,
-        pins={"valid_from_zero_bit_identical": pin0,
-              "linear_skip_bit_identical_to_full_scan": pin1},
-        ms=bench_ms(lambda: ops.decode_attention(q, k, v, pos, cpos, vf,
-                                                 linear=True)),
-        plain_ms=bench_ms(lambda: R.decode_attention_ref(
-            q[:, 0], kt, vt, pos, cpos, valid_from=vf)),
-        bound_ms=tb, bound_by=by,
-        library_ms=bench_ms(lambda: torch.nn.functional
-                            .scaled_dot_product_attention(
-                                q.transpose(1, 2), kt, vt,
-                                attn_mask=dmask[:, None, None, :])),
-        shape=f"B={B} S={S_CACHE} cache_pos={cpos} Hq=KV={H} hd={HD} fp32 "
-              f"linear")
+        main, max_abs_err=dworst, rows=drows,
+        pins={p: all(v[p] for v in dpins.values()) for p in main["pins"]},
+        shape=main["shape"] + "; max_abs_err: the largest over every fp32 "
+              "check; bound_ms: bytes of the attended K and V rows; "
+              "cold_ms: K and V cold in L2; rows: each heads, dtype and "
+              "cache_pos (S = 4096 for gemma2_9b's last); plan: the "
+              "launch's split (splits blocks a group, one cluster; block "
+              "c takes chunks c, c + splits, ... of the cache axis)")
 
     rows = {}
     for M in INT8_M:
@@ -837,10 +958,19 @@ def _profiled(fn, steps):
 
 
 def _log_top(label, ev, steps, n):
+    """The n kernels with the most device time: ms a step (all of a
+    step's launches together) and launches a step."""
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:n]:
         ms = e.self_device_time_total / 1e3 / steps
-        log(f"profile {label}   {ms:8.3f} ms/call  x{e.count / steps:5.0f}  "
+        log(f"profile {label}   {ms:8.3f} ms/step  x{e.count / steps:5.0f}  "
             f"{e.key[:90]}")
+
+
+def _share(ev, name, steps):
+    """(device ms, launches) a step of the kernels whose name holds name."""
+    kev = [e for e in ev if name in e.key]
+    return (sum(e.self_device_time_total for e in kev) / 1e3 / steps,
+            sum(e.count for e in kev) / steps)
 
 
 def phase_profile(p32, p8):
@@ -861,8 +991,11 @@ def phase_profile(p32, p8):
                 eng.run_decode(nxt)
             wall, dev, n_k, ev = _profiled(lambda: eng.run_decode(nxt), steps)
         log(f"profile {label} decode step: wall {wall:.3f} ms, device "
-            f"kernels {dev:.3f} ms ({n_k:.0f} launches), device idle "
-            f"share {1 - dev / wall:.3f}")
+            f"kernels {dev:.3f} ms ({n_k:.0f} launches), "
+            + ", ".join("%s %.3f ms (%.0f launches)"
+                        % (n, *_share(ev, n, steps))
+                        for n in ("decode_attention", "int8_matmul"))
+            + f", device idle share {1 - dev / wall:.3f}")
         _log_top(label, ev, steps, 8)
         for T in (T_SERVE, T_PREFILL):
             toks = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
@@ -871,12 +1004,8 @@ def phase_profile(p32, p8):
                 eng.run_prefill(toks)
                 wall, dev, n_k, ev = _profiled(lambda: eng.run_prefill(toks),
                                                calls)
-            share = {}
-            for kname in ("int8_matmul", "flash_attention"):
-                kev = [e for e in ev if kname in e.key]
-                share[kname] = (
-                    sum(e.self_device_time_total for e in kev) / 1e3 / calls,
-                    sum(e.count for e in kev) / calls)
+            share = {n: _share(ev, n, calls)
+                     for n in ("int8_matmul", "flash_attention")}
             log(f"profile {label} prefill B={B} T={T}: wall {wall:.3f} ms, "
                 f"device kernels {dev:.3f} ms ({n_k:.0f} launches), "
                 + ", ".join(f"{n} {ms:.3f} ms ({c:.0f} launches)"
@@ -999,8 +1128,8 @@ def main(argv=None):
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
                 pins=r["pins"],
                 **{k: r[k] for k in ("bound_fp32_cores_ms", "cold_ms",
-                                     "library_cold_ms", "small_m", "prefill",
-                                     "rows")
+                                     "library_cold_ms", "plan", "small_m",
+                                     "prefill", "rows")
                    if k in r},
                 shape=r["shape"]))
         print(json.dumps({"kernels": kernels}), flush=True)

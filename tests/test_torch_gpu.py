@@ -6,10 +6,13 @@ so every pytest worker collects the same tests).
 Run on a GPU host:  PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import inspect
+
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref as R
+from repro_torch.kernels.decode_attention import decode_plan
 from repro_torch.kernels.int8_matmul import (int8_matmul as kint8,
                                              prefill_plan, small_m_plan)
 
@@ -198,19 +201,163 @@ def test_decode_attention_matches_plain(cuda, case, ring, dtype):
         assert not out[-1].any()
 
 
-def test_decode_attention_pins(cuda):
-    q = _randn(cuda, (3, 1, 4, 64), torch.float32)
-    k = _randn(cuda, (3, 300, 4, 64), torch.float32)
-    pos = torch.arange(300, dtype=torch.int32, device="cuda")
+def _decode_case(gen, B, S, Hq, KV, hd, cpos, dtype, ring=False):
+    q = _randn(gen, (B, 1, Hq, hd), dtype)
+    k = _randn(gen, (B, S, KV, hd), dtype)
+    v = _randn(gen, (B, S, KV, hd), dtype)
+    s = torch.arange(S, device="cuda")
+    pos = (s + 17) % max(S - 3, 1) if ring else s
+    return q, k, v, torch.where(pos <= cpos, pos, -1).to(torch.int32)
+
+
+def _decode_check(q, k, v, pos, cpos, vf, dtype, ring=False, window=0,
+                  cap=0.0):
+    vft = None if vf is None else torch.tensor(vf, dtype=torch.int32,
+                                              device="cuda")
+    out = ops.decode_attention(q, k, v, pos, cpos, vft, window=window,
+                               softcap=cap, linear=not ring)
+    want = R.decode_attention_ref(q[:, 0], k.transpose(1, 2),
+                                  v.transpose(1, 2), pos, cpos, cap=cap,
+                                  window=window, valid_from=vft)
+    torch.cuda.synchronize()
+    _assert_close(out[:, 0], want, TOL[dtype])
+    for row in range(q.shape[0]):   # nothing valid: exact zeros
+        if vf is not None and not want[row].any():
+            assert not out[row].any()
+    return out
+
+
+def _plan(q, k, v):
+    return decode_plan(q[:, 0], k.transpose(1, 2), v.transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (B, S, Hq, KV, hd, cache_pos, window, cap, valid_from, ring): q
+    # heads per kv head 1, 2, 8, 10 and 16 at head dims 64, 128 and 256
+    # (the reference configs' heads), S no multiple of the chunk, rows
+    # with nothing valid (valid_from past cache_pos).
+    (2, 1000, 8, 8, 64, 900, 0, 0.0, [0, 333], False),
+    (2, 777, 16, 8, 256, 700, 0, 50.0, [3, 500], False),
+    (2, 1001, 32, 4, 128, 1000, 0, 0.0, [0, 999], True),
+    (2, 515, 10, 1, 256, 400, 128, 30.0, [0, 401], False),
+    (2, 643, 64, 4, 128, 600, 0, 0.0, [17, 601], True),
+    (3, 300, 16, 1, 64, 299, 64, 0.0, [0, 100, 300], False),
+    (2, 200, 20, 2, 256, 150, 0, 10.0, [0, 151], True),
+    (2, 333, 16, 8, 128, 332, 0, 0.0, [0, 5], False),
+    (1, 4096, 16, 8, 256, 4000, 0, 0.0, [1500], False),
+])
+def test_decode_attention_reference_heads(cuda, case, dtype):
+    B, S, Hq, KV, hd, cpos, win, cap, vf, ring = case
+    q, k, v, pos = _decode_case(cuda, B, S, Hq, KV, hd, cpos, dtype, ring)
+    _decode_check(q, k, v, pos, cpos, vf, dtype, ring, win, cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(8, 8, 64), (32, 4, 128), (16, 8, 256),
+                                   (64, 4, 128), (10, 1, 256)])
+def test_decode_attention_chunk_edges(cuda, heads, dtype):
+    """cache_pos on a chunk's last slot and on the next chunk's first,
+    valid_from on chunk starts, at cache_pos and past it; and a ring whose
+    whole chunks hold only unwritten slots."""
+    Hq, KV, hd = heads
+    S = 1024
+    q, k, v, pos = _decode_case(cuda, 4, S, Hq, KV, hd, S, dtype)
+    ch = _plan(q, k, v)["chunk"]
+    assert ch < S // 2
+    e = 2 * ch
+    for cpos, vf in ((e - 1, [0, ch, e - 1, e]), (e, [ch, e, e + 1, 0])):
+        p = torch.where(pos <= cpos, pos, -1).to(torch.int32)
+        _decode_check(q, k, v, p, cpos, vf, dtype)
+    q, k, v, pos = _decode_case(cuda, 4, S, Hq, KV, hd, 900, dtype, True)
+    pos[ch:3 * ch] = -1
+    _decode_check(q, k, v, pos, 900, [0, ch, 2 * ch, 3 * ch], dtype, True,
+                  window=600)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_every_s(cuda, dtype):
+    """Every S up to 70 and some larger, cache_pos at the end: S no
+    multiple of the chunk, tiles ragged at both ends."""
+    ragged = 0
+    for S in list(range(1, 71)) + [127, 129, 255, 257, 1000, 1023, 1025]:
+        q, k, v, pos = _decode_case(cuda, 2, S, 8, 2, 64, S - 1, dtype)
+        ragged += S % _plan(q, k, v)["chunk"] != 0
+        _decode_check(q, k, v, pos, S - 1, [0, S // 3], dtype)
+    assert ragged > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_nothing_written(cuda, dtype):
+    """No slot written (pos all -1): every row writes exact zeros."""
+    q, k, v, pos = _decode_case(cuda, 3, 300, 16, 2, 128, 10, dtype)
+    pos[:] = -1
+    for ring in (False, True):
+        out = ops.decode_attention(q, k, v, pos, 10, linear=not ring)
+        torch.cuda.synchronize()
+        assert not out.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(4, 4, 64), (32, 4, 128), (16, 8, 256),
+                                   (64, 4, 128), (10, 1, 256)])
+def test_decode_attention_pins(cuda, heads, dtype):
+    """valid_from = 0 gives the bits of None; the linear skip gives those
+    of the full scan; two calls (another shape's call between) the same
+    bits."""
+    Hq, KV, hd = heads
+    q, k, v, pos = _decode_case(cuda, 3, 1000, Hq, KV, hd, 700, dtype)
     zeros = torch.zeros(3, dtype=torch.int32, device="cuda")
-    assert torch.equal(ops.decode_attention(q, k, k, pos, 250, linear=True),
-                       ops.decode_attention(q, k, k, pos, 250, zeros,
+    vf = torch.tensor([70, 650, 0], dtype=torch.int32, device="cuda")
+    assert torch.equal(ops.decode_attention(q, k, v, pos, 700, linear=True),
+                       ops.decode_attention(q, k, v, pos, 700, zeros,
                                             linear=True))
-    vf = torch.tensor([70, 130, 0], dtype=torch.int32, device="cuda")
-    assert torch.equal(ops.decode_attention(q, k, k, pos, 250, vf,
-                                            linear=True),
-                       ops.decode_attention(q, k, k, pos, 250, vf,
-                                            linear=False))
+    first = ops.decode_attention(q, k, v, pos, 700, vf, linear=True,
+                                 softcap=30.0)
+    assert torch.equal(first, ops.decode_attention(q, k, v, pos, 700, vf,
+                                                   linear=False,
+                                                   softcap=30.0))
+    ops.decode_attention(q[:1], k[:1, :50], v[:1, :50], pos[:50], 40)
+    assert torch.equal(first, ops.decode_attention(q, k, v, pos, 700, vf,
+                                                   linear=True,
+                                                   softcap=30.0))
+
+
+@pytest.mark.parametrize("heads", [(32, 32, 64), (32, 4, 128), (16, 8, 256),
+                                   (64, 4, 128), (10, 1, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_plan_ignores_cache_pos(cuda, heads, dtype):
+    """The split plan takes q, k and v only (shapes, dtype, strides and
+    the K/V pointers' alignment), so no cache_pos or valid_from reaches
+    it: it is the same for other tensors of these shapes, before and
+    after calls at every cache_pos and valid_from in both layouts. A
+    chunk is 4 warp tiles, and a group has at most 16 blocks (one
+    cluster) and no more than S has chunks."""
+    assert list(inspect.signature(decode_plan).parameters) == ["q", "k",
+                                                               "v"]
+    Hq, KV, hd = heads
+    S = 1024
+    q, k, v, pos = _decode_case(cuda, 4, S, Hq, KV, hd, S, dtype)
+    plan = _plan(q, k, v)
+    for cpos in range(0, S + 64, 37):
+        for vf in ([0, 0, 0, 0], [0, cpos // 2, cpos, cpos + 1]):
+            for ring in (False, True):
+                _decode_check(q, k, v, torch.where(pos <= cpos, pos, -1),
+                              cpos, vf, dtype, ring)
+    q2, k2, v2, _ = _decode_case(cuda, 4, S, Hq, KV, hd, 0, dtype, True)
+    assert _plan(q2, k2, v2) == _plan(q, k, v) == plan
+    assert 1 <= plan["splits"] <= min(16, -(-S // plan["chunk"]))
+    assert plan["chunk"] == 4 * plan["warp_tile"]
+    assert plan["resident_clusters"] >= 1
+
+
+def test_decode_attention_one_launch(cuda):
+    """One kernel launch a call: the counter moves by one."""
+    q, k, v, pos = _decode_case(cuda, 2, 500, 16, 2, 128, 400,
+                                torch.float32)
+    before = ops.launch_counts()["decode_attention"]
+    ops.decode_attention(q, k, v, pos, 400, linear=True)
+    assert ops.launch_counts()["decode_attention"] == before + 1
 
 
 def _int8_case(gen, M, K, N, dtype, x_pad=0, w_off=0):

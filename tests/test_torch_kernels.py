@@ -21,6 +21,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as JR
 from repro.quant import quantize_int8
 from repro_torch.kernels import ops, ref as R
+from repro_torch.kernels.decode_attention import _check_args as decode_check
 from repro_torch.kernels.decode_attention import decode_attention as kdecode
 from repro_torch.kernels.flash_attention import _check_args as flash_check
 from repro_torch.kernels.flash_attention import flash_attention as kflash
@@ -446,6 +447,272 @@ def test_ops_int8_small_m_matches_jax(case, rng):
                           torch.from_numpy(np.array(sc).reshape(-1)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-4)
+
+
+def _decode_split_emulated(q, k, v, pos, cache_pos, vf, *, splits, tile,
+                           rows=1, warps=4, window=0, cap=0.0, linear=False):
+    """The decode kernel's split-and-combine arithmetic on the CPU, with
+    its statistics kept per warp: the cache axis in chunks of `warps`
+    warp tiles of `tile` slots; block c of `splits` takes chunks c,
+    c + splits, ..., and warp w of it warp tile w of each, in order. Each
+    warp runs an online softmax from a running max of -1e30, with p = 0
+    exactly for a masked slot, and keeps `rows` accumulators (row group
+    g takes slots g, g + rows, ... of each tile), rescaled alike and
+    summed in group order when its block folds it. A block folds its
+    warps in warp order, then the blocks fold in rank order; in both
+    folds a partial whose max is <= -0.5e30 (nothing valid) is left
+    out. With `linear`, a block
+    none of whose chunks reaches into [valid_from, cache_pos] of a row,
+    or a warp tile wholly outside it, is not computed for that row (its
+    state is kept as it was). q: (B, Hq, hd) and k, v: (B, KV, S, hd)
+    float32; vf: (B,) int. Returns (float32 output (B, Hq, hd), tiles
+    skipped)."""
+    B, Hq, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    rep = Hq // KV
+    chunk = warps * tile
+    neg, half = R.NEG_INF, R.NEG_INF * 0.5
+    qg = q.reshape(B, KV, rep, hd) * hd ** -0.5
+    p_ = pos.long()
+    valid = (p_ >= 0) & (p_ <= cache_pos)
+    if window:
+        valid &= p_ > cache_pos - window
+    valid = valid[None] & (p_[None] >= vf.long()[:, None])       # (B, S)
+    vfb = vf.long()[:, None, None]
+
+    def runs(lo, hi):   # (B, 1, 1): the rows that read slots [lo, hi)
+        if not linear:
+            return torch.ones_like(vfb, dtype=torch.bool)
+        return (hi - 1 >= vfb) & torch.tensor(lo <= cache_pos)
+
+    def fold(parts):    # [(m, l, acc)] in order -> (m, l, acc)
+        seen = [m > half for m, _, _ in parts]
+        M = torch.full_like(parts[0][0], neg)
+        for (m, _, _), ok in zip(parts, seen):
+            M = torch.where(ok, torch.maximum(M, m), M)
+        L = torch.zeros_like(M)
+        A = torch.zeros_like(parts[0][2])
+        for (m, l, a), ok in zip(parts, seen):
+            f = torch.exp(m - M)
+            L = torch.where(ok, L + l * f, L)
+            A = torch.where(ok[..., None], A + a * f[..., None], A)
+        return M, L, A
+
+    skipped = 0
+    blocks = []
+    for c in range(splits):
+        mine = range(c, -(-S // chunk), splits)
+        brun = torch.zeros_like(vfb, dtype=torch.bool)
+        for j in mine:
+            brun |= runs(j * chunk, min(S, (j + 1) * chunk))
+        wparts = []
+        for w in range(warps):
+            m = torch.full((B, KV, rep), neg)
+            l = torch.zeros((B, KV, rep))
+            acc = torch.zeros((B, KV, rep, rows, hd))
+            for j in mine:
+                t0 = j * chunk + w * tile
+                if t0 >= S:
+                    continue
+                t1 = min(t0 + tile, S)
+                run = brun & runs(t0, t1)
+                skipped += int((~run).sum())
+                s = torch.einsum("bgrh,bgsh->bgrs", qg, k[:, :, t0:t1])
+                s = R.softcap(s, cap)
+                ok = valid[:, None, None, t0:t1]
+                s = torch.where(ok, s, neg)
+                m_new = torch.maximum(m, s.amax(-1))
+                corr = torch.exp(m - m_new)
+                p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+                l_new = l * corr + p.sum(-1)
+                acc_new = acc * corr[..., None, None] + torch.stack(
+                    [torch.einsum("bgrs,bgsh->bgrh", p[..., g::rows],
+                                  v[:, :, t0 + g:t1:rows])
+                     for g in range(rows)], -2)
+                m = torch.where(run, m_new, m)
+                l = torch.where(run, l_new, l)
+                acc = torch.where(run[..., None, None], acc_new, acc)
+            wparts.append((m, l, sum(acc[..., g, :] for g in range(rows))))
+        m, l, acc = fold(wparts)
+        blocks.append((torch.where(brun, m, neg), l, acc))
+    M, L, A = fold(blocks)
+    out = torch.where((M > half)[..., None], A / L.clamp_min(1e-30)[..., None],
+                      0.0)
+    return out.reshape(B, Hq, hd), skipped
+
+
+# (blocks a group, warp tile, cache_pos, valid_from, window) at S = 100,
+# chunks of 4 warp tiles: cache_pos on a chunk's last slot and on the
+# next chunk's first, valid_from on chunk starts, at cache_pos and past
+# it (a row with nothing valid), the window's first valid position on a
+# chunk start, S no multiple of the chunk, one block, 16 blocks (one
+# non-portable cluster), odd sizes.
+DECODE_SPLITS = [
+    (3, 6, 47, [0, 24, 48], 0),
+    (3, 6, 48, [24, 47, 0], 25),
+    (2, 4, 79, [0, 33, 64], 16),
+    (4, 2, 99, [0, 1, 99], 0),
+    (1, 16, 60, [0, 30, 61], 0),
+    (16, 1, 90, [0, 40, 91], 0),
+    (5, 1, 55, [0, 13, 56], 20),
+]
+
+
+def _decode_split_case(rng, dtype, cache_pos, ring, chunk, Hq=8, KV=2,
+                       S=100, hd=32):
+    """q (B=3, Hq), k and v (KV, S, hd) with values of dtype, as float32
+    numpy arrays (model layout for k and v), and the stored positions:
+    linear, or a ring whose second chunk was never written."""
+    B = 3
+    q, k, v = (np.array(jnp.asarray(rng.normal(size=shape), getattr(
+                   jnp, dtype)).astype(jnp.float32))
+               for shape in ((B, 1, Hq, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    pos = (np.arange(S) + 11) % (S - 3) if ring else np.arange(S)
+    pos = np.where(pos <= cache_pos, pos, -1)
+    if ring:
+        pos[chunk:2 * chunk] = -1
+    return q, k, v, pos.astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("case", DECODE_SPLITS)
+def test_decode_split_arithmetic_matches_jax(case, ring, dtype, rng):
+    """The decode kernel's split over blocks and warps, emulated on the
+    CPU, against the JAX kernel (Pallas, interpret mode) on the same
+    inputs: within 2e-5 in fp32 and, rounded to bf16, 2e-2 in bf16.
+    Rows with nothing valid give exact zeros on both sides."""
+    splits, tile, cpos, vf, window = case
+    q, k, v, pos = _decode_split_case(rng, dtype, cpos, ring, 4 * tile)
+    _decode_split_check(q, k, v, pos, cpos, vf, dtype, ring, window,
+                        splits=splits, tile=tile)
+
+
+def _decode_split_check(q, k, v, pos, cpos, vf, dtype, ring, window, **kw):
+    """The emulated split (`kw`: its splits, tile and row groups) against
+    the JAX kernel on q, k, v and pos of `_decode_split_case`, softcap 30:
+    2e-5 in fp32 and, rounded to bf16, 2e-2 in bf16; exact zeros on both
+    sides for rows with nothing valid. Returns the emulation's fp32
+    output."""
+    want = jops.decode_attention(
+        *(jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v)),
+        jnp.asarray(pos), jnp.int32(cpos), jnp.asarray(vf, jnp.int32),
+        window=window, softcap=30.0, block_s=16, linear=not ring)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out, _ = _decode_split_emulated(
+        tq[:, 0], tk.transpose(1, 2), tv.transpose(1, 2),
+        torch.from_numpy(pos), cpos, torch.tensor(vf), window=window,
+        cap=30.0, linear=not ring, **kw)
+    got = out.to(getattr(torch, dtype))
+    np.testing.assert_allclose(_np(got), _np(want)[:, 0], atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    for row, x in enumerate(vf):
+        if x > cpos:
+            assert not got[row].any() and not _np(want)[row].any()
+    return out
+
+
+# The decode kernel's warp tile and row groups (Lanes::TW, Lanes::RW) at
+# each dtype and head dim it is instantiated at, and the q heads per kv
+# head each case runs (those of stablelm-1.6b, qwen3_moe_235b and
+# recurrentgemma_2b).
+DECODE_TILES = [("float32", 64, 8, 2), ("float32", 128, 4, 1),
+                ("float32", 256, 2, 1), ("bfloat16", 64, 16, 4),
+                ("bfloat16", 128, 8, 2), ("bfloat16", 256, 4, 1)]
+DECODE_REP = {64: 1, 128: 16, 256: 10}
+DECODE_CU = FLASH_CU.with_name("decode_attention.cu")
+
+
+def _shipped_decode_lanes(dtype, hd):
+    """(warps a block, blocks a cluster at most, warp tile, row groups)
+    of the decode kernel at this dtype and head dim, worked out by the
+    formulas of `Lanes` in the kernel's source."""
+    src = DECODE_CU.read_text()
+    num = lambda pat: int(re.search(pat, src)[1])
+    vecn = num(r"VECN = (\d+) / sizeof\(T\);") // (4 if dtype == "float32"
+                                                  else 2)
+    cpr = hd // vecn
+    lpr = min(cpr, num(r"LPR = CPR < (\d+) \? CPR : \d+;"))
+    rw = num(r"RW = (\d+) / LPR;") // lpr
+    nr = num(r"NR = (\d+) / NV;") // (cpr // lpr)
+    return (num(r"THREADS = (\d+);") // 32, num(r"MAX_SPLITS = (\d+);"),
+            rw * nr, rw)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("edge", [1, 2])
+@pytest.mark.parametrize("dtype, hd, tile, rows", DECODE_TILES)
+def test_decode_split_shipped_tiles_match_jax(dtype, hd, tile, rows, edge,
+                                              ring, rng):
+    """The emulated split at the warp tile and row groups the kernel ships
+    for each dtype and head dim (read from its source), with the blocks a
+    group its launcher takes when the card holds every cluster (as many
+    as S has chunks, at most 16), against the JAX kernel. S is three
+    chunks and 5 slots; cache_pos on a chunk's last slot (edge 1) or the
+    next chunk's first (edge 2, with the window's first valid position on
+    a chunk start); valid_from on chunk starts, at cache_pos and past it.
+    On a linear cache the skip gives the bits of the full scan."""
+    warps, max_splits, shipped_tile, shipped_rows = _shipped_decode_lanes(
+        dtype, hd)
+    assert (shipped_tile, shipped_rows, warps) == (tile, rows, 4)
+    chunk = warps * tile
+    S = 3 * chunk + 5
+    kw = dict(splits=min(max_splits, -(-S // chunk)), tile=tile, rows=rows)
+    e = 2 * chunk
+    cpos, vf, window = ((e - 1, [0, chunk, e], 0) if edge == 1 else
+                        (e, [chunk, e, 0], chunk + 1))
+    rep = DECODE_REP[hd]
+    Hq, KV = (2 * rep, 2) if rep < 10 else (rep, 1)
+    q, k, v, pos = _decode_split_case(rng, dtype, cpos, ring, chunk, Hq=Hq,
+                                      KV=KV, S=S, hd=hd)
+    got = _decode_split_check(q, k, v, pos, cpos, vf, dtype, ring, window,
+                              **kw)
+    if not ring:
+        args = (torch.from_numpy(q)[:, 0],
+                torch.from_numpy(k).transpose(1, 2),
+                torch.from_numpy(v).transpose(1, 2), torch.from_numpy(pos),
+                cpos, torch.tensor(vf))
+        scan, _ = _decode_split_emulated(*args, window=window, cap=30.0,
+                                         linear=False, **kw)
+        assert torch.equal(got, scan)
+
+
+@pytest.mark.parametrize("case", DECODE_SPLITS)
+def test_decode_split_linear_skip_bit_identical(case, rng):
+    """On a linear cache the emulated split gives the same bits whether it
+    skips the blocks and tiles outside [valid_from, cache_pos] or scans
+    them: a tile with no valid slot leaves (m, l, acc) as they were, and a
+    partial with nothing valid is left out of the folds."""
+    splits, tile, cpos, vf, window = case
+    q, k, v, pos = _decode_split_case(rng, "float32", cpos, False, 4 * tile)
+    args = (torch.from_numpy(q)[:, 0], torch.from_numpy(k).transpose(1, 2),
+            torch.from_numpy(v).transpose(1, 2), torch.from_numpy(pos), cpos,
+            torch.tensor(vf))
+    kw = dict(splits=splits, tile=tile, window=window, cap=30.0)
+    skip, n_skipped = _decode_split_emulated(*args, linear=True, **kw)
+    scan, none = _decode_split_emulated(*args, linear=False, **kw)
+    assert n_skipped > 0 and none == 0
+    assert torch.equal(skip, scan)
+
+
+def test_decode_wrapper_limits():
+    """The wrapper takes head_dim up to 256 and up to 16 q heads per kv
+    head (the reference configs: hd 64-256, rep 1-16) and refuses more,
+    before any launch."""
+    pos = torch.empty(8, dtype=torch.int32, device="meta")
+    for Hq, KV, hd in ((32, 32, 64), (32, 4, 128), (16, 8, 256),
+                       (64, 4, 128), (10, 1, 256), (3, 3, 20)):
+        q = torch.empty(1, Hq, hd, device="meta")
+        kv = torch.empty(1, KV, 8, hd, device="meta")
+        decode_check(q, kv, kv, pos)
+    q = torch.empty(1, 4, 257, device="meta")
+    kv = torch.empty(1, 2, 8, 257, device="meta")
+    with pytest.raises(ValueError, match="head_dim 257 > 256"):
+        decode_check(q, kv, kv, pos)
+    q = torch.empty(1, 17, 64, device="meta")
+    kv = torch.empty(1, 1, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="17 q heads per kv head > 16"):
+        decode_check(q, kv, kv, pos)
 
 
 # -- the port's own pins and the no-fallback rule ---------------------------
