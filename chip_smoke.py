@@ -25,18 +25,26 @@ Phases (each prints its results, one line each):
   model    full-width stablelm-1.6b (fp32 and int8) through prefill and
            teacher-forced decode on the "cuda" path against the "naive"
            path (for int8: on the dequantized weights, so no int8
-           kernel), and a prefill_row backfill against a from-scratch
-           prefill
+           kernel), a prefill_row backfill against a from-scratch
+           prefill, and the engine's CUDA graphs against models.model
+           run eagerly on a fresh cache, bit for bit (both candidates,
+           40 decode steps, a backfill mid-group, a second prefill at
+           a shorter T)
   serve    the main path: CNNSelectServer over the two full-width
            engines (profiling, then requests under cnnselect), then a
            ServingLoop run with staggered arrivals that backfills freed
-           slots; every kernel's launch counter, and that of the int8
-           kernel's prefill path, must be > 0 here
+           slots; every kernel's launch counter (graph replays
+           included), and that of the int8 kernel's prefill path, must
+           be > 0 here; each engine's captures, replays and capture
+           seconds
   profile  (only when asked for) where the time of a full-width decode
-           step and of a full-width prefill (T = 64 and 512) goes: host
-           wall time against device kernel time from torch.profiler,
-           decode_attention's, int8_matmul's and flash_attention's
-           shares, and the kernels that take it (ms a step)
+           step and of a full-width prefill (T = 64 and 512) goes,
+           through the engine's graphs and through models.model called
+           eagerly, in one call: host wall time and the card's timeline
+           (CUDA events) over 64 decode steps, 3 times, then device
+           kernel time from torch.profiler, decode_attention's,
+           int8_matmul's and flash_attention's shares, and the kernels
+           that take it (ms a step)
   tune     (only when asked for) the prefill int8 path's variants side
            by side: the source as it is, each tile's ring 2 <-> 3 stages
            deep, and each tile forced, built from csrc/int8_matmul.cu
@@ -614,6 +622,8 @@ def phase_kernels(results):
             q, k, v = _decode_inputs(gen, dtype, Hq, KV, hd, S, Bn)
             pos = _decode_pos("linear", cpos, S)
             vf = vft(vfl)
+            # cache_pos as the decode step passes it: one int32 on the card.
+            cpt = torch.tensor(cpos, dtype=torch.int32, device="cuda")
             kt, vt = k.transpose(1, 2), v.transpose(1, 2)
             es = q.element_size()
             # Bytes: the K and V rows attended (from each row's valid_from
@@ -636,11 +646,11 @@ def phase_kernels(results):
                 max_abs_err=derrs[heads, dtype], tol=TOL[dtype],
                 pins=dpins[heads, dtype],
                 ms=bench_ms(lambda: ops.decode_attention(
-                    q, k, v, pos, cpos, vf, linear=True)),
+                    q, k, v, pos, cpt, vf, linear=True)),
                 cold_ms=bench_cold_ms(lambda c: ops.decode_attention(
-                    q, c[0], c[1], pos, cpos, vf, linear=True), kv),
+                    q, c[0], c[1], pos, cpt, vf, linear=True), kv),
                 plain_ms=bench_ms(lambda: R.decode_attention_ref(
-                    q[:, 0], kt, vt, pos, cpos, valid_from=vf)),
+                    q[:, 0], kt, vt, pos, cpt, valid_from=vf)),
                 bound_ms=tb, bound_by=by,
                 # SDPA reads K and V unexpanded (GQA through enable_gqa).
                 library_ms=bench_ms(lambda: torch.nn.functional
@@ -847,6 +857,120 @@ def phase_model(p32, p8):
     del eng, ref
     torch.cuda.empty_cache()
 
+    # The engine's CUDA graphs against models.model run eagerly.
+    for label, params in (("fp32", p32), ("int8", p8)):
+        _graphs_vs_eager(label, params, rng)
+
+
+# A group at T_SERVE (ragged), GRAPH_STEPS decode steps with a backfill
+# into slot 1 (BACKFILL_LEN real tokens) before step BACKFILL_AT, then a
+# group at the shorter T_SECOND and 4 decode steps.
+GRAPH_STEPS, BACKFILL_AT, BACKFILL_LEN, T_SECOND = 40, 12, 30, 32
+LENS_FIRST, LENS_SECOND = [T_SERVE, 17, 50, 1], [T_SECOND, 9, T_SECOND, 20]
+
+
+def _engine_steps(eng, fed):
+    """The plan above through the engine (graphs on the card): its
+    logits at every step, in order. fed: the prompts (first group,
+    backfill row, second group)."""
+    out = [eng.run_prefill(fed[0], lengths=LENS_FIRST)]
+    for i in range(GRAPH_STEPS):
+        nxt = out[-1].argmax(-1).astype(np.int32)[:, None]
+        if i == BACKFILL_AT:
+            out.append(eng.prefill_row(fed[1], 1, length=BACKFILL_LEN))
+            nxt[1, 0] = out[-1].argmax(-1)
+        out.append(eng.run_decode(nxt))
+    out.append(eng.run_prefill(fed[2], lengths=LENS_SECOND))
+    for _ in range(4):
+        out.append(eng.run_decode(out[-1].argmax(-1).astype(np.int32)
+                                  [:, None]))
+    return out
+
+
+def _model_steps(cfg, params, fed):
+    """The same plan through `models.model`, eagerly, on a fresh cache a
+    group; the backfill's row through `forward` on a fresh row cache,
+    merged as the engine merges it."""
+    from repro_torch.models.model import (decode_step, forward, init_cache,
+                                          prefill)
+    from repro_torch.serving.engine import InferenceEngine
+    i32 = dict(dtype=torch.int32, device="cuda")
+    out = []
+
+    def group(toks, lengths):
+        T = toks.shape[1]
+        vf = torch.tensor([T - n for n in lengths], **i32)
+        lg, cache = prefill(params, torch.tensor(toks, device="cuda"), cfg,
+                            S_CACHE, logits_last_only=True, valid_from=vf)
+        out.append(lg[:, 0].cpu().numpy())
+        return cache, vf
+
+    def decode(cache, pos, vf, nxt):
+        lg, _ = decode_step(params, torch.tensor(nxt, device="cuda"), cache,
+                            pos, cfg, valid_from=vf)
+        out.append(lg[:, 0].cpu().numpy())
+    cache, vf = group(fed[0], LENS_FIRST)
+    for i in range(GRAPH_STEPS):
+        nxt = out[-1].argmax(-1).astype(np.int32)[:, None]
+        if i == BACKFILL_AT:
+            pos = T_SERVE + i
+            rc = init_cache(cfg, 1, S_CACHE, device="cuda")
+            lg, _ = forward(params, torch.tensor(fed[1][None], device="cuda"),
+                            cfg, cache=rc,
+                            positions=pos - T_SERVE + torch.arange(T_SERVE,
+                                                                   **i32),
+                            logits_last_only=True,
+                            valid_from=torch.tensor([pos - BACKFILL_LEN],
+                                                    **i32))
+            out.append(lg[0, 0].cpu().numpy())
+            InferenceEngine._merge(cache, rc, 1, pos - T_SERVE, T_SERVE)
+            vf[1] = pos - BACKFILL_LEN
+            del rc
+            nxt[1, 0] = out[-1].argmax(-1)
+        decode(cache, T_SERVE + i, vf, nxt)
+    del cache
+    cache, vf = group(fed[2], LENS_SECOND)
+    for i in range(4):
+        decode(cache, T_SECOND + i, vf,
+               out[-1].argmax(-1).astype(np.int32)[:, None])
+    return out
+
+
+def _graphs_vs_eager(label, params, rng):
+    """Full width: the engine (decode as one captured CUDA graph, prefill
+    as one a prompt length, over one persistent cache) against
+    `models.model` run eagerly on a fresh cache, bit for bit at every
+    step."""
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = _full_width("cuda")
+    V = cfg.vocab
+    row = np.zeros(T_SERVE, np.int32)
+    row[T_SERVE - BACKFILL_LEN:] = rng.integers(0, V, BACKFILL_LEN)
+    fed = [rng.integers(0, V, (B, T_SERVE)).astype(np.int32), row,
+           rng.integers(0, V, (B, T_SECOND)).astype(np.int32)]
+    eng = InferenceEngine(cfg, params, batch_size=B, max_seq=S_CACHE)
+    with torch.no_grad():
+        got = _engine_steps(eng, fed)
+        want = _model_steps(cfg, params, fed)
+    require(len(got) == len(want) == GRAPH_STEPS + 7, "graph plan length")
+    unequal = [i for i, (g, w) in enumerate(zip(got, want))
+               if not np.array_equal(g, w)]
+    rel = max(float(np.abs(g - w).max() / np.abs(w).max())
+              for g, w in zip(got, want))
+    st = eng.stats
+    log(f"model {label} graphs vs eager: stablelm-1.6b full width, "
+        f"prefill T={T_SERVE} lengths={LENS_FIRST}, {GRAPH_STEPS} decode "
+        f"steps, a backfill into slot 1 before step {BACKFILL_AT}, prefill "
+        f"T={T_SECOND} + 4 steps: {len(got)} steps, bit-identical at "
+        f"{len(got) - len(unequal)} (unequal: {unequal}), max |dlogit|/"
+        f"max|logit| = {rel:.3e}; captures={st.graph_captures} replays="
+        f"{st.graph_replays} compile_time_s={st.compile_time_s:.3f}")
+    require(not unequal, f"{label}: graph logits != eager logits")
+    require(bool(all(np.isfinite(g).all() for g in got)),
+            f"{label}: non-finite graph logits")
+    del eng
+    torch.cuda.empty_cache()
+
 
 # --------------------------------------------------------------------------
 # Phase: serve (the main path)
@@ -854,7 +978,6 @@ def phase_model(p32, p8):
 
 def phase_serve(p32, p8):
     from repro_torch.kernels import ops
-    from repro_torch.kernels.int8_matmul import int8_matmul
     from repro_torch.serving.batching import Request
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.loop import ServingLoop
@@ -899,6 +1022,8 @@ def phase_serve(p32, p8):
 
         loop = ServingLoop(engines, profiles=profs, t_threshold=30.0,
                            policy="cnnselect")
+        for e in engines.values():   # the loop's prompt length
+            e.warmup(S_CACHE // 4)
         reqs = []
         for i in range(10):
             n = int(rng.integers(16, 200))
@@ -915,19 +1040,36 @@ def phase_serve(p32, p8):
     log(f"loop summary: {json.dumps(s)}")
     backfills = {n: e.stats.backfill_calls for n, e in engines.items()}
     log(f"loop backfills: {backfills}")
+    for n, e in engines.items():
+        st = e.stats
+        log(f"serve engine {n}: graph captures {st.graph_captures}, "
+            f"replays {st.graph_replays}, compile_time_s "
+            f"{st.compile_time_s:.3f} (warm-up and captures), prefill "
+            f"{st.prefill_calls} calls {st.prefill_time_s:.3f} s, decode "
+            f"{st.decode_calls} calls {st.decode_time_s:.3f} s, backfill "
+            f"{st.backfill_calls} calls {st.backfill_time_s:.3f} s")
+        require(st.graph_replays == st.prefill_calls + st.decode_calls,
+                f"{n}: every prefill and decode a graph replay")
     require(s["served"] == len(reqs), "loop served every request")
     for b in loop.batchers.values():
         require(all(len(r.tokens) == r.max_new_tokens for r in b.done),
                 "loop tokens per request")
     require(sum(backfills.values()) > 0, "loop backfilled a freed slot")
     # int8_matmul counts every launch; int8_matmul_prefill those of its
-    # M > 8 path (prefill and prefill_row of the int8 candidate).
+    # M > 8 path (prefill and prefill_row of the int8 candidate). Both
+    # hold the launches of graph replays.
     counts = dict(ops.launch_counts(),
-                  int8_matmul_prefill=int8_matmul.prefill_launches)
-    log(f"serve launches: {json.dumps(counts)} in "
+                  int8_matmul_prefill=ops.int8_prefill_launches())
+    # The window also holds the eager warm-ups before each capture: the
+    # replayed part shows that the served steps' graphs ran each kernel.
+    replayed = ops.replayed_counts()
+    log(f"serve launches: {json.dumps(counts)} (of them graph replays: "
+        f"{json.dumps(replayed)}) in "
         f"{time.perf_counter() - t_start:.1f} s")
     for name, n in counts.items():
         require(n > 0, f"{name} launched on the main path")
+        require(replayed[name] > 0,
+                f"{name} launched by a graph replay on the main path")
     return counts
 
 
@@ -973,46 +1115,129 @@ def _share(ev, name, steps):
             sum(e.count for e in kev) / steps)
 
 
+def _timed(fn, n):
+    """(wall ms, device-timeline ms) a call over n calls in a row: the
+    host clock, and CUDA events recorded before the first call and after
+    the last (the card's timeline, gaps included). Without profiler."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, e0.elapsed_time(e1) / n
+
+
+PROFILE_STEPS, PROFILE_REPS = 64, 3
+
+
 def phase_profile(p32, p8):
-    """Where the time of a full-width decode step (B=4, context 64) and
-    of a full-width prefill (B=4, T=64 and T=512) goes: host wall time
-    against the device time of its kernels, from torch.profiler."""
+    """Where the time of a full-width decode step (B=4, context 64-127)
+    and of a full-width prefill (B=4, T = 64 and 512) goes, through the
+    engine's CUDA graphs ("graph") and through `models.model` called
+    eagerly, as the engine ran before its graphs ("eager": tokens copied
+    in, logits copied out, a fresh cache a prefill), on one card in one
+    call. First without the profiler (host clock and CUDA events), then
+    under torch.profiler (device kernel time, launches, idle share)."""
+    from repro_torch.models.model import decode_step, prefill
     from repro_torch.serving.engine import InferenceEngine
     cfg = _full_width("cuda")
     rng = np.random.default_rng(2)
+    vf = torch.zeros((B,), dtype=torch.int32, device="cuda")
     for label, params in (("fp32", p32), ("int8", p8)):
         eng = InferenceEngine(cfg, params, batch_size=B, max_seq=S_CACHE)
-        steps = 8
+        prompts = rng.integers(0, cfg.vocab, (B, T_SERVE)).astype(np.int32)
+        toks = torch.tensor(prompts, device="cuda")
+
+        def graph_group():
+            nxt = eng.run_prefill(prompts).argmax(-1).astype(np.int32)
+            return lambda: eng.run_decode(nxt[:, None])
+
+        def eager_group():
+            lg, cache = prefill(params, toks, cfg, S_CACHE,
+                                logits_last_only=True, valid_from=vf)
+            nxt = lg[:, 0].cpu().numpy().argmax(-1).astype(np.int32)[:, None]
+            pos = itertools.count(T_SERVE)
+
+            def step():
+                lg, _ = decode_step(params, torch.tensor(nxt, device="cuda"),
+                                    cache, next(pos), cfg, valid_from=vf)
+                return lg[:, 0].cpu().numpy()
+            return step
+        groups = {"graph": graph_group, "eager": eager_group}
         with torch.no_grad():
-            logits = eng.run_prefill(rng.integers(0, cfg.vocab, (B, T_SERVE))
-                                     .astype(np.int32))
-            nxt = logits.argmax(-1).astype(np.int32)[:, None]
-            for _ in range(2):
-                eng.run_decode(nxt)
-            wall, dev, n_k, ev = _profiled(lambda: eng.run_decode(nxt), steps)
-        log(f"profile {label} decode step: wall {wall:.3f} ms, device "
-            f"kernels {dev:.3f} ms ({n_k:.0f} launches), "
-            + ", ".join("%s %.3f ms (%.0f launches)"
-                        % (n, *_share(ev, n, steps))
-                        for n in ("decode_attention", "int8_matmul"))
-            + f", device idle share {1 - dev / wall:.3f}")
-        _log_top(label, ev, steps, 8)
+            t0 = time.perf_counter()
+            eng.warmup(T_SERVE)
+            log(f"profile {label} warm-up and capture at T={T_SERVE}: "
+                f"{time.perf_counter() - t0:.3f} s, captures "
+                f"{eng.stats.graph_captures}")
+            rows = {m: [] for m in groups}
+            for r in range(PROFILE_REPS):
+                for mode, group in groups.items():
+                    rows[mode].append(_timed(group(), PROFILE_STEPS))
+                    log(f"profile {label} decode {mode} rep {r}: wall "
+                        f"{rows[mode][-1][0]:.4f} ms/step, device timeline "
+                        f"{rows[mode][-1][1]:.4f} ms/step over "
+                        f"{PROFILE_STEPS} steps (context {T_SERVE}-"
+                        f"{T_SERVE + PROFILE_STEPS - 1})")
+            graph_group()
+            replay = eng._graphs["decode"].graph.replay
+            _, dev = _timed(replay, PROFILE_STEPS)
+            log(f"profile {label} decode graph replays alone (no copies, "
+                f"no host wait): {dev:.4f} ms/replay device timeline")
+            for mode, group in groups.items():
+                wall = sorted(w for w, _ in rows[mode])[1]
+                span = sorted(d for _, d in rows[mode])[1]
+                log(f"profile {label} decode {mode}: median of "
+                    f"{PROFILE_REPS} reps: wall {wall:.4f} ms/step, device "
+                    f"timeline {span:.4f} ms/step")
+                wall, dev, n_k, ev = _profiled(group(), 8)
+                log(f"profile {label} decode step {mode} (profiler): wall "
+                    f"{wall:.3f} ms, device kernels {dev:.3f} ms ({n_k:.0f} "
+                    f"launches), "
+                    + ", ".join("%s %.3f ms (%.0f launches)"
+                                % (n, *_share(ev, n, 8))
+                                for n in ("decode_attention", "int8_matmul"))
+                    + f", device idle share {1 - dev / wall:.3f}")
+                _log_top(f"{label} {mode}", ev, 8, 6)
         for T in (T_SERVE, T_PREFILL):
-            toks = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
-            calls = 3
+            ptoks = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+            ttoks = torch.tensor(ptoks, device="cuda")
+            calls = {
+                "graph": lambda: eng.run_prefill(ptoks),
+                "eager": lambda: prefill(
+                    params, ttoks, cfg, S_CACHE, logits_last_only=True,
+                    valid_from=vf)[0][:, 0].cpu().numpy()}
             with torch.no_grad():
-                eng.run_prefill(toks)
-                wall, dev, n_k, ev = _profiled(lambda: eng.run_prefill(toks),
-                                               calls)
-            share = {n: _share(ev, n, calls)
-                     for n in ("int8_matmul", "flash_attention")}
-            log(f"profile {label} prefill B={B} T={T}: wall {wall:.3f} ms, "
-                f"device kernels {dev:.3f} ms ({n_k:.0f} launches), "
-                + ", ".join(f"{n} {ms:.3f} ms ({c:.0f} launches)"
-                            for n, (ms, c) in share.items())
-                + f", device idle share {1 - dev / wall:.3f}")
-            _log_top(label, ev, calls, 6)
+                t0 = time.perf_counter()
+                eng.run_prefill(ptoks)      # a first call at T: capture
+                log(f"profile {label} prefill first call at T={T} (warm-up "
+                    f"and capture): {time.perf_counter() - t0:.3f} s")
+                for mode, fn in calls.items():
+                    fn()
+                    wall, span = _timed(fn, 5)
+                    log(f"profile {label} prefill {mode} B={B} T={T}: wall "
+                        f"{wall:.4f} ms, device timeline {span:.4f} ms "
+                        f"(5 calls)")
+                    wall, dev, n_k, ev = _profiled(fn, 3)
+                    share = {n: _share(ev, n, 3)
+                             for n in ("int8_matmul", "flash_attention")}
+                    log(f"profile {label} prefill {mode} B={B} T={T} "
+                        f"(profiler): wall {wall:.3f} ms, device kernels "
+                        f"{dev:.3f} ms ({n_k:.0f} launches), "
+                        + ", ".join(f"{n} {ms:.3f} ms ({c:.0f} launches)"
+                                    for n, (ms, c) in share.items())
+                        + f", device idle share {1 - dev / wall:.3f}")
+                    _log_top(f"{label} {mode}", ev, 3, 4)
+        st = eng.stats
+        log(f"profile {label} engine: captures {st.graph_captures}, "
+            f"replays {st.graph_replays}, compile_time_s "
+            f"{st.compile_time_s:.3f}")
         del eng
+        torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------

@@ -8,6 +8,10 @@
 // marks an unwritten slot); softcap applies; a row with no valid slot
 // writes exact zeros. With linear = 1 (slot index == stored position)
 // the slots wholly outside [valid_from[b], cache_pos] are not read.
+// cache_pos is one int32 in device memory, as the TPU kernel's
+// scalar-prefetch cpos_ref: each block loads it beside valid_from[b], so
+// no launch argument holds a position and one captured CUDA graph of a
+// decode step serves every position.
 //
 // What bounds it on this card: each attended cached key and value is
 // read once and used for 2 * rep FLOPs per element, far below the card's
@@ -99,7 +103,7 @@ struct DecodeArgs {
   long long qsb, qsh;
   long long ksb, kss, ksh;
   long long vsb, vss, vsh;
-  int cache_pos;
+  const int* cache_pos;  // one int32 on the device, as the TPU's cpos_ref
   float scale, cap;
   int window, linear;
 };
@@ -237,7 +241,7 @@ decode_attention_kernel(DecodeArgs a) {
   const int splits = gridDim.x;
   const int b = blockIdx.y / a.KV, g = blockIdx.y % a.KV;
   const int gi = lane / L::LPR, li = lane % L::LPR;
-  const int cpos = a.cache_pos, vf = a.vf[b];
+  const int cpos = *a.cache_pos, vf = a.vf[b];
   // This block's chunks: blockIdx.x, + splits, + 2 splits, ... of BT
   // slots each; with linear = 1 only those that reach into [vf, cpos]
   // (chunks jlo .. jhi) are read.
@@ -652,7 +656,7 @@ extern "C" int decode_attention_fwd(
     const int* vf, void* o, int B, int S, int Hq, int KV, int hd,
     long long qsb, long long qsh, long long ksb, long long kss,
     long long ksh, long long vsb, long long vss, long long vsh,
-    int cache_pos, float scale, float cap, int window, int linear,
+    const int* cache_pos, float scale, float cap, int window, int linear,
     int dtype, void* stream) {
   const DecodeArgs a{q,   k,   v,   pos, vf,  o,   B,   S,         Hq,
                      KV,  hd,  qsb, qsh, ksb, kss, ksh, vsb,       vss,

@@ -10,9 +10,11 @@ split from the shapes and the card, never from `cache_pos` or
 `valid_from` (`decode_plan` reports it). K and V stream through a
 per-warp `cp.async` ring of 16-byte copies (element loads for rows that
 are not 16-byte aligned) and are read once for all query heads of their
-group. Any head_dim up to `MAX_HEAD_DIM` and any `Hq / KV` up to
-`MAX_REP`. Two calls give the same bits, and the linear skip gives the
-bits of the full scan.
+group. `cache_pos` is one int32 on the device, which the kernel loads
+as the TPU kernel loads its scalar-prefetch `cpos_ref`, so a captured
+call serves every position. Any head_dim up to `MAX_HEAD_DIM` and any
+`Hq / KV` up to `MAX_REP`. Two calls give the same bits, and the linear
+skip gives the bits of the full scan.
 
 This wrapper only launches the kernel: it takes CUDA tensors and raises
 on anything else. The plain version is `kernels.ref.decode_attention_ref`;
@@ -33,8 +35,8 @@ _C = ctypes
 # The arguments of decode_attention_fwd and of decode_attention_plan.
 _ARGTYPES = {
     "decode_attention_fwd": [_C.c_void_p] * 6 + [_C.c_int] * 5
-    + [_C.c_longlong] * 8 + [_C.c_int] + [_C.c_float] * 2 + [_C.c_int] * 3
-    + [_C.c_void_p],
+    + [_C.c_longlong] * 8 + [_C.c_void_p] + [_C.c_float] * 2
+    + [_C.c_int] * 3 + [_C.c_void_p],
     "decode_attention_plan": [_C.c_void_p] * 2 + [_C.c_int] * 5
     + [_C.c_longlong] * 6 + [_C.c_int, _C.c_void_p],
 }
@@ -88,18 +90,36 @@ def _last_axis_contiguous(*ts):
     return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
 
 
-def decode_attention(q, k, v, pos, cache_pos: int, valid_from=None, *,
+def _device_cache_pos(cache_pos, device):
+    """The one int32 on the device that the kernel reads cache_pos from:
+    a 0-d or 1-element int32 tensor on `device` as it is (no copy), an
+    int as a new one (a fill on the device, no copy from the host)."""
+    if not isinstance(cache_pos, torch.Tensor):
+        return torch.full((1,), int(cache_pos), dtype=torch.int32,
+                          device=device)
+    if (cache_pos.dtype != torch.int32 or cache_pos.numel() != 1
+            or cache_pos.device != device):
+        raise ValueError(f"cache_pos must be an int or one int32 on "
+                         f"{device}, got {cache_pos.dtype} "
+                         f"{tuple(cache_pos.shape)} on {cache_pos.device}")
+    return cache_pos
+
+
+def decode_attention(q, k, v, pos, cache_pos, valid_from=None, *,
                      window: int = 0, softcap: float = 0.0,
                      scale: float | None = None, linear: bool = False):
     """q: (B, Hq, hd); k, v: (B, KV, S, hd), any strides with a contiguous
     last axis; pos: (S,) int stored positions (-1 = unwritten);
-    cache_pos: the current position, a Python int (no device read-back).
+    cache_pos: the current position, an int or a 0-d / 1-element int32
+    tensor on q's device, which the kernel reads when it runs (so a
+    captured call serves whatever the tensor then holds).
     valid_from: optional (B,) first attendable stored position per row
     (None == zeros == unmasked). linear: slot index == stored position,
     which lets the kernel skip the slots outside [valid_from, cache_pos].
     Returns (B, Hq, hd)."""
     _on_cuda(q=q, k=k, v=v, pos=pos)
     _check_args(q, k, v, pos)
+    cpos = _device_cache_pos(cache_pos, q.device)
     q, k, v = _last_axis_contiguous(q, k, v)
     B, Hq, hd = q.shape
     KV, S = k.shape[1], k.shape[2]
@@ -116,7 +136,7 @@ def decode_attention(q, k, v, pos, cache_pos: int, valid_from=None, *,
             q.stride(0), q.stride(1),
             k.stride(0), k.stride(2), k.stride(1),
             v.stride(0), v.stride(2), v.stride(1),
-            int(cache_pos), float(scale), float(softcap), int(window),
+            cpos.data_ptr(), float(scale), float(softcap), int(window),
             int(bool(linear)), _DTYPES[q.dtype])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _fn()(*args, stream)

@@ -16,17 +16,63 @@ from repro_torch.kernels.int8_matmul import int8_matmul as _int8mm
 
 KERNELS = {"flash_attention": _flash, "decode_attention": _decode,
            "int8_matmul": _int8mm}
+# Every launch counter: (wrapper, attribute). int8_matmul_prefill counts
+# the int8 launches of the M > 8 path.
+_COUNTERS = {**{name: (fn, "launches") for name, fn in KERNELS.items()},
+             "int8_matmul_prefill": (_int8mm, "prefill_launches")}
+# A replayed CUDA graph runs its kernels without calling their wrappers:
+# the launches of replays, added by count_replay.
+_replayed = dict.fromkeys(_COUNTERS, 0)
+
+
+def _raw_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTERS.items()}
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches since the last reset}."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """{kernel name: launches since the last reset}, those of graph
+    replays included."""
+    raw = _raw_counts()
+    return {name: raw[name] + _replayed[name] for name in KERNELS}
+
+
+def int8_prefill_launches() -> int:
+    """Launches of int8_matmul's M > 8 path since the last reset, those
+    of graph replays included."""
+    return _int8mm.prefill_launches + _replayed["int8_matmul_prefill"]
+
+
+def replayed_counts() -> dict:
+    """{counter: launches of graph replays since the last reset}, the
+    M > 8 path's int8_matmul_prefill included: the part of the counts
+    that no eager call made."""
+    return dict(_replayed)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
-    _int8mm.prefill_launches = 0
+    for fn, attr in _COUNTERS.values():
+        setattr(fn, attr, 0)
+    for name in _replayed:
+        _replayed[name] = 0
+
+
+def capture_launches(capture):
+    """Run capture(), which records kernels into a CUDA graph without
+    running them, and return (its result, {counter: launches recorded}).
+    The recorded launches are taken back off the counters: they count
+    when a replay runs them (count_replay)."""
+    before = _raw_counts()
+    out = capture()
+    after = _raw_counts()
+    for name, (fn, attr) in _COUNTERS.items():
+        setattr(fn, attr, before[name])
+    return out, {name: after[name] - before[name] for name in _COUNTERS}
+
+
+def count_replay(launches: dict) -> None:
+    """Count one replay of a graph that records `launches`."""
+    for name, n in launches.items():
+        _replayed[name] += n
 
 
 def _on_cpu(*tensors) -> bool:
@@ -65,11 +111,12 @@ def flash_attention(q, k, v, pos_q, pos_k, valid_from=None, *, window=0,
                                 softcap=softcap, scale=scale)
 
 
-def decode_attention(q, k, v, pos, cache_pos: int, valid_from=None, *,
+def decode_attention(q, k, v, pos, cache_pos, valid_from=None, *,
                      window=0, softcap=0.0, scale=None, linear=False):
     """q: (B,1,H,hd) or (B,H,hd); k/v: (B,S,KV,hd) model layout; pos:
     (S,) stored positions, -1 for a slot never written (masked).
-    cache_pos: Python int. valid_from: optional (B,) first attendable
+    cache_pos: an int or a 0-d int32 tensor on q's device (read by the
+    kernel, never by the host). valid_from: optional (B,) first attendable
     stored position; linear declares slot == position (full-seq caches),
     enabling the tile skip."""
     squeeze = q.ndim == 4

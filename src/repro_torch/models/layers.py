@@ -152,15 +152,17 @@ def _impl_cuda(q, k, v, pos_q, pos_k, cfg, *, window, cap, scale,
     reads the stored-position array (correct for ring caches) and, on
     linear caches (window == 0 means every attention cache spans
     max_seq, so slot == position), skips tiles outside
-    [valid_from, cache_pos]. cache_pos arrives as a Python int, so the
-    step reads nothing back from the device. Anything else is a prefill
+    [valid_from, cache_pos]. cache_pos arrives as a 0-d int32 tensor on
+    the device, which the kernel reads, so the step reads nothing back
+    to the host and a captured step serves every position. Anything
+    else is a prefill
     over freshly computed contiguous k/v: the flash kernel's implicit
     positions match pos_q == pos_k, with valid_from shifted to kernel
     coordinates by the ops wrapper."""
     from repro_torch.kernels import ops as kops  # deferred import
     if q.shape[1] == 1 and k.shape[1] > 1:
         if cache_pos is None:
-            raise ValueError("decode attention needs cache_pos as an int")
+            raise ValueError("decode attention needs cache_pos")
         return kops.decode_attention(q, k, v, pos_k, cache_pos, valid_from,
                                      window=window, softcap=cap, scale=scale,
                                      linear=(window == 0))
@@ -177,7 +179,7 @@ ATTN_IMPLS = {
 
 
 def attention(q, k, v, pos_q, pos_k, cfg: ModelConfig, *, window: int,
-              valid_from=None, cache_pos: Optional[int] = None):
+              valid_from=None, cache_pos=None):
     scale = cfg.head_dim ** -0.5
     cap = cfg.attn_softcap
     impl = cfg.attn_impl
@@ -222,13 +224,16 @@ def _proj(x, w):
 
 
 def attn_block(p, x, cfg: ModelConfig, kind: str, positions,
-               cache: Optional[dict] = None, cache_pos: Optional[int] = None,
+               cache: Optional[dict] = None, cache_pos=None,
                valid_from=None):
     """Pre-norm attention block. Returns (x_out, cache).
 
     Train/prefill: cache is None, positions = (T,) absolute positions.
     Decode: cache = {"k","v","pos"} ring/linear buffers of this layer,
-    cache_pos = the new token's position as a Python int.
+    cache_pos = the new token's position, the 0-d int32 tensor on x's
+    device that `models.model.decode_step` builds. The cache write goes
+    to a slot computed on the device, so nothing is read back to the
+    host.
     valid_from: optional (B,) int32 — per row, the first key position this
     row may attend to (masks left-padding and, on backfilled slots, the
     previous occupant's stale cache entries).
@@ -251,12 +256,14 @@ def attn_block(p, x, cfg: ModelConfig, kind: str, positions,
         # Decode: ring-buffer write. Windowed layers allocate S == window so
         # the modulo wraps; full layers allocate S == max_seq (identity).
         S = cache["k"].shape[1]
-        slot = cache_pos % S
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        # The reference's dynamic_update_slice at slot: an index on the
+        # device (a 0-d tensor as an index would be read by the host).
+        slot = (cache_pos.long() % S).reshape(1)
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
         # Stored positions make masking correct for both ring & linear
         # cases (unwritten slots stay -1 and are masked out).
-        cache["pos"][slot] = positions[0].to(cache["pos"].dtype)
+        cache["pos"].index_copy_(0, slot, positions.to(cache["pos"].dtype))
         k, v, pos_k = cache["k"], cache["v"], cache["pos"]
         pos_q = positions
     elif cache is not None:

@@ -17,7 +17,6 @@ Caches are updated in place: `forward` returns the cache it was given.
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 
@@ -82,14 +81,15 @@ def _index(tree, g: int):
 
 
 def forward(params, inputs, cfg: ModelConfig, *, cache=None,
-            cache_pos: Optional[int] = None, positions=None,
+            cache_pos=None, positions=None,
             logits_last_only: bool = False, valid_from=None):
     """inputs: (B,T) int tokens or (B,T,d) embeddings.
 
     cache=None: plain forward. cache given & T>1: prefill (fills cache in
     place). logits_last_only: unembed only the final position (serving
     prefill — avoids materializing the (B,S,V) logits tensor).
-    cache_pos: the decode step's position as a Python int.
+    cache_pos: the decode step's position, the 0-d int32 tensor on the
+    device that `decode_step` builds (default 0, as in the reference).
     valid_from: optional (B,) int32 per-row first attendable position.
     Returns (logits, {"cache": cache})."""
     _check_kinds(cfg)
@@ -105,7 +105,7 @@ def forward(params, inputs, cfg: ModelConfig, *, cache=None,
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32, device=x.device)
     if cache_pos is None:
-        cache_pos = 0
+        cache_pos = torch.zeros((), dtype=torch.int32, device=x.device)
 
     for g in range(cfg.n_groups_scan):
         for i, kind in enumerate(cfg.pattern):
@@ -129,15 +129,25 @@ def forward(params, inputs, cfg: ModelConfig, *, cache=None,
     return logits, {"cache": cache}
 
 
-def decode_step(params, token, cache, cache_pos: int, cfg: ModelConfig, *,
+def decode_step(params, token, cache, cache_pos, cfg: ModelConfig, *,
                 valid_from=None):
     """One decode step. token: (B,1) int (or (B,1,d) embeddings);
-    cache_pos: Python int = number of tokens already in context.
-    valid_from: optional (B,) per-row first attendable cache position.
-    Returns (logits (B,1,V), cache)."""
-    cache_pos = int(cache_pos)
-    positions = torch.full((1,), cache_pos, dtype=torch.int32,
-                           device=token.device)
+    cache_pos: number of tokens already in context, an int or a 0-d
+    int32 tensor on token's device (the two give the same bits; the
+    tensor is read only on the device, so a captured step serves every
+    position). valid_from: optional (B,) per-row first attendable cache
+    position. Returns (logits (B,1,V), cache)."""
+    if isinstance(cache_pos, torch.Tensor):
+        if (cache_pos.dtype != torch.int32 or cache_pos.ndim != 0
+                or cache_pos.device != token.device):
+            raise ValueError(
+                f"cache_pos must be an int or a 0-d int32 tensor on "
+                f"{token.device}, got {cache_pos.dtype} "
+                f"{tuple(cache_pos.shape)} on {cache_pos.device}")
+    else:
+        cache_pos = torch.full((), cache_pos, dtype=torch.int32,
+                               device=token.device)
+    positions = cache_pos[None]     # the reference's cache_pos[None]
     logits, extras = forward(params, token, cfg, cache=cache,
                              cache_pos=cache_pos, positions=positions,
                              valid_from=valid_from)
@@ -145,15 +155,23 @@ def decode_step(params, token, cache, cache_pos: int, cfg: ModelConfig, *,
 
 
 def prefill(params, inputs, cfg: ModelConfig, max_seq: int, *,
-            logits_last_only: bool = False, valid_from=None):
+            logits_last_only: bool = False, valid_from=None, cache=None):
     """Full-sequence prefill: returns (logits, cache ready for decoding).
 
     valid_from: optional (B,) int32 — with left-padded prompts, row b's
     real tokens start at position valid_from[b]; padding slots are masked
     out of every attention so they cannot contaminate logits or the KV
-    cache reads of later decode steps."""
+    cache reads of later decode steps.
+    cache: optional (B, max_seq) cache from `init_cache` to prefill in
+    place (the serving engine's persistent cache): every stored position
+    goes back to -1 (unwritten) first, so it gives the bits of a fresh
+    cache. None: a fresh cache is allocated."""
     B, T = inputs.shape[0], inputs.shape[1]
-    cache = init_cache(cfg, B, max_seq, device=inputs.device)
+    if cache is None:
+        cache = init_cache(cfg, B, max_seq, device=inputs.device)
+    else:
+        for c in cache["blocks"] + cache["tail"]:
+            c["pos"].fill_(-1)
     logits, extras = forward(
         params, inputs, cfg, cache=cache,
         positions=torch.arange(T, dtype=torch.int32, device=inputs.device),

@@ -5,15 +5,30 @@ batching loop. Decode steps are *aligned* within a batch group; the
 scheduler (batching.py) regroups requests between steps and backfills
 freed slots via `prefill_row` mid-group.
 
-The engine runs on the card unless it is given CPU parameters. Its
-cache position is a Python int, so a decode step hands it to the
-kernel as an argument and reads nothing back from the device except
-the logits it returns. Timed sections end with a device synchronise
-when the engine runs on CUDA, so they measure execution, not enqueue.
+The engine allocates its (batch_size, max_seq) KV cache once, and every
+step writes into it in place (the reference donates its cache to the
+jit'd decode). The steps read static input tensors: the prompt tokens
+(one tensor per prompt length), the decode tokens, `valid_from` (B,),
+and the decode position, a 0-d int32 on the device that the engine
+sets before each decode from its Python `cache_pos`. On the card the
+reference's jit'd steps become CUDA graphs over those tensors: `warmup`
+runs each step once eagerly before its capture (kernel builds, launch
+attributes, cuBLAS handles and workspaces), then captures the decode
+step, which serves every position, and the prefill at its prompt
+length; a prefill at another length is run once and captured before its
+first call (jit's per-shape cache). The graphs share one memory pool, as they replay in turn on one
+stream; the cache lies outside it. A capture that fails raises: on the
+card a step runs eagerly only to warm up. The backfill pair
+(`prefill_row`) runs eagerly into the same cache. On CPU tensors the
+same step functions run eagerly.
+
+Timed sections end with a device synchronise when the engine runs on
+CUDA, so they measure execution, not enqueue.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -21,8 +36,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.models.config import ATTN_KINDS, ModelConfig
-from repro_torch.models.model import decode_step, forward, init_cache, prefill
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import (decode_step, forward, init_cache,
+                                      prefill)
 from repro_torch.models.params import tree_leaves
 from repro_torch.utils import resolve_device
 
@@ -35,7 +52,18 @@ class EngineStats:
     prefill_time_s: float = 0.0
     decode_time_s: float = 0.0
     backfill_time_s: float = 0.0
-    compile_time_s: float = 0.0
+    compile_time_s: float = 0.0     # warm-up and graph captures
+    graph_captures: int = 0
+    graph_replays: int = 0
+
+
+@dataclass
+class _Graph:
+    """A captured step: a replay rewrites `out`; `launches` are the
+    kernel launches it records, a replay."""
+    graph: torch.cuda.CUDAGraph
+    out: torch.Tensor
+    launches: dict
 
 
 class InferenceEngine:
@@ -56,29 +84,43 @@ class InferenceEngine:
                     f"params live on {leaf.device}, engine device is "
                     f"{self.device}; move them first (no implicit copy)")
         self.stats = EngineStats()
-        self.cache = None
-        self.cache_pos = 0
-        self.valid_from = None
+        # Every ported block kind keeps an attention cache, so per-row
+        # masking (left-padded prompts, slot backfill) always applies.
+        self.cache = init_cache(cfg, batch_size, max_seq, device=self.device)
+        self.cache_pos = 0       # tokens in context; 0: no group prefilled
+        # The steps' static inputs.
+        i32 = dict(dtype=torch.int32, device=self.device)
+        self.valid_from = torch.zeros((batch_size,), **i32)
+        self._token = torch.zeros((batch_size, 1), **i32)
+        self._pos = torch.zeros((), **i32)
+        self._prompts = {}       # prompt length -> (B, T) tokens
+        self._graphs = {}        # "decode" or a prompt length -> _Graph
+        self._backfill_warm = False
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
         kinds = set(cfg.pattern) | set(cfg.tail_kinds)
-        # Per-row masking (left-padded prompts / slot backfill) only works
-        # on attention caches; recurrent state integrates pads irrevocably.
-        self._maskable = kinds <= set(ATTN_KINDS)
-        # Slot backfill additionally needs every layer's cache to span
-        # max_seq (a windowed ring smaller than max_seq wraps slots).
-        self._backfillable = self._maskable and not (
+        # Slot backfill needs every layer's cache to span max_seq (a
+        # windowed ring smaller than max_seq wraps slots).
+        self._backfillable = not (
             "local" in kinds and cfg.window and cfg.window < max_seq)
 
     # -- step functions (the reference's jit entry points) -------------
 
-    def _prefill(self, params, tokens, valid_from=None):
-        return prefill(params, tokens, self.cfg, max_seq=self.max_seq,
-                       logits_last_only=True, valid_from=valid_from)
+    def _prefill(self, tokens, valid_from):
+        """Group prefill into the persistent cache. Returns the last
+        position's logits (B, 1, V)."""
+        logits, _ = prefill(self.params, tokens, self.cfg, self.max_seq,
+                            logits_last_only=True, valid_from=valid_from,
+                            cache=self.cache)
+        return logits
 
-    def _decode(self, params, token, cache, pos: int, valid_from=None):
-        return decode_step(params, token, cache, pos, self.cfg,
-                           valid_from=valid_from)
+    def _decode(self, token, cache_pos, valid_from):
+        logits, _ = decode_step(self.params, token, self.cache, cache_pos,
+                                self.cfg, valid_from=valid_from)
+        return logits
 
-    def _prefill_row(self, params, tokens, offset: int, valid_from):
+    def _prefill_row(self, tokens, offset: int, valid_from):
         # Single-row prefill at absolute positions offset..offset+T-1
         # into a fresh (B=1) cache, merged into the live batch cache by
         # `_merge`. RoPE is applied at the true absolute positions so the
@@ -88,7 +130,7 @@ class InferenceEngine:
         positions = offset + torch.arange(T, dtype=torch.int32,
                                           device=tokens.device)
         cache = init_cache(self.cfg, 1, self.max_seq, device=tokens.device)
-        logits, extras = forward(params, tokens, self.cfg, cache=cache,
+        logits, extras = forward(self.params, tokens, self.cfg, cache=cache,
                                  positions=positions, logits_last_only=True,
                                  valid_from=valid_from)
         return logits, extras["cache"]
@@ -109,77 +151,144 @@ class InferenceEngine:
                     b[row, offset:offset + T] = r[0, :T].to(b.dtype)
         return bcache
 
+    # -- the steps over their static inputs ------------------------------
+
+    def _prompt(self, T: int):
+        """The static (B, T) prompt tokens of prompt length T."""
+        if T not in self._prompts:
+            self._prompts[T] = torch.zeros((self.batch_size, T),
+                                           dtype=torch.int32,
+                                           device=self.device)
+        return self._prompts[T]
+
+    def _step(self, key):
+        """The step a graph key names, over its static inputs: "decode",
+        or the prefill at a prompt length."""
+        if key == "decode":
+            return lambda: self._decode(self._token, self._pos,
+                                        self.valid_from)
+        prompt = self._prompt(key)
+        return lambda: self._prefill(prompt, self.valid_from)
+
+    @contextlib.contextmanager
+    def _on_capture_stream(self):
+        """On the card: run on the stream the graphs are captured on
+        (so what a first call sets up per stream is ready for capture),
+        after the current stream's work and before its later work."""
+        if self.device.type != "cuda":
+            yield
+            return
+        main = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(main)
+        with torch.cuda.stream(self._stream):
+            yield
+        main.wait_stream(self._stream)
+
+    def _capture(self, key):
+        """Capture the step `key` into a CUDA graph over the static
+        inputs it reads, in the engine's pool. Its launches count at
+        each replay, not at capture."""
+        graph, step = torch.cuda.CUDAGraph(), self._step(key)
+
+        def record():
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream):
+                return step()
+        out, launches = ops.capture_launches(record)
+        self._graphs[key] = _Graph(graph, out, launches)
+        self.stats.graph_captures += 1
+
+    def _run(self, key):
+        """The step `key` on the static inputs: on the card a replay of
+        its graph, on the CPU an eager call. Returns its logits."""
+        if self.device.type != "cuda":
+            return self._step(key)()
+        g = self._graphs[key]
+        g.graph.replay()
+        ops.count_replay(g.launches)
+        self.stats.graph_replays += 1
+        return g.out
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _tensor(self, a, dtype=torch.int32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype,
-                               device=self.device)
+    @staticmethod
+    def _host(a):
+        """A host int32 tensor of a (copied), to copy onto the device."""
+        return torch.tensor(np.asarray(a, np.int32))
 
     def warmup(self, prompt_len: int = 8):
-        """Cold-start work: builds the kernels on first use and runs each
-        step once (the serving analogue of the paper's model-load phase).
-        Returns seconds."""
+        """Cold-start work (the serving analogue of the paper's
+        model-load phase): runs each step that has no graph yet once
+        eagerly (prefill at prompt_len, decode), which builds the
+        kernels on first use, and the backfill pair on the engine's
+        first warm-up; on the card it then captures those steps. Leaves
+        no group in the cache. Returns seconds."""
         self._sync()
         t0 = time.perf_counter()
-        toks = torch.zeros((self.batch_size, prompt_len), dtype=torch.int32,
-                           device=self.device)
-        vf = torch.zeros((self.batch_size,), dtype=torch.int32,
-                         device=self.device) if self._maskable else None
-        _, cache = self._prefill(self.params, toks, vf)
-        self._decode(self.params, toks[:, :1], cache, prompt_len, vf)
-        if self._backfillable:
-            # Run the backfill pair too: a first mid-group join must not
-            # charge the cold start to a measured request.
-            _, rc = self._prefill_row(self.params, toks[:1], 0,
-                                      torch.zeros((1,), dtype=torch.int32,
-                                                  device=self.device))
-            self._merge(cache, rc, 0, 0, prompt_len)
+        keys = [k for k in (prompt_len, "decode") if k not in self._graphs]
+        prompt = self._prompt(prompt_len)
+        prompt.zero_()
+        self._token.zero_()
+        self.valid_from.zero_()
+        self._pos.fill_(prompt_len)
+        with self._on_capture_stream():
+            for key in keys:
+                self._step(key)()
+            if self._backfillable and not self._backfill_warm:
+                # Run the backfill pair too: a first mid-group join must
+                # not charge the cold start to a measured request.
+                _, rc = self._prefill_row(prompt[:1], 0, self.valid_from[:1])
+                self._merge(self.cache, rc, 0, 0, prompt_len)
+                self._backfill_warm = True
+        if self.device.type == "cuda":
+            for key in keys:
+                self._capture(key)
+        self.cache_pos = 0
         self._sync()
         dt = time.perf_counter() - t0
         self.stats.compile_time_s += dt
         return dt
 
     def _valid_from_for(self, tokens, lengths):
-        """(B,) first attendable absolute position per row, or None."""
+        """(B,) first attendable absolute position per row (numpy)."""
         B, T = tokens.shape
         if lengths is None:
-            if not self._maskable:
-                return None
-            return torch.zeros((B,), dtype=torch.int32, device=self.device)
-        if not self._maskable:
-            raise NotImplementedError(
-                f"padded prompts need per-row masking, which recurrent "
-                f"blocks in pattern {self.cfg.pattern} do not support")
+            return np.zeros(B, np.int32)
         lengths = np.asarray(lengths, np.int64)
         if lengths.shape != (B,) or np.any(lengths < 1) or np.any(lengths > T):
             raise ValueError(f"lengths must be (B,) in [1, {T}]")
-        return self._tensor(T - lengths)
+        return T - lengths
 
     def run_prefill(self, tokens: np.ndarray, lengths=None):
         """tokens: (B, T) int32, left-padded; lengths: optional (B,) count
         of real (right-aligned) tokens per row — padding positions are
         masked out of attention so they cannot contaminate logits or
-        later cache reads. Returns next-token logits; stores cache."""
+        later cache reads. Returns next-token logits; fills the cache.
+        On the card, a first prefill at length T runs once eagerly and
+        captures its graph first (booked as compile time)."""
         if tokens.shape[0] != self.batch_size:
             raise ValueError(f"tokens has {tokens.shape[0]} rows, engine "
                              f"batch_size is {self.batch_size}")
+        T = tokens.shape[1]
         vf = self._valid_from_for(tokens, lengths)
+        if self.device.type == "cuda" and T not in self._graphs:
+            self.warmup(T)
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self._prefill(self.params, self._tensor(tokens), vf)
+        self._prompt(T).copy_(self._host(tokens))
+        self.valid_from.copy_(self._host(vf))
+        logits = self._run(T)
         out = logits[:, 0].cpu().numpy()
         self.stats.prefill_calls += 1
         self.stats.prefill_time_s += time.perf_counter() - t0
-        self.cache = cache
-        self.cache_pos = tokens.shape[1]
-        self.valid_from = vf
+        self.cache_pos = T
         return out
 
     def run_decode(self, tokens: np.ndarray):
         """tokens: (B, 1) int32 next tokens. Returns logits (B, V)."""
-        if self.cache is None:
+        if self.cache_pos == 0:
             raise RuntimeError(
                 "no KV cache — call run_prefill first (run_decode on a "
                 "fresh engine has nothing to decode against)")
@@ -189,9 +298,9 @@ class InferenceEngine:
                 f"max_seq={self.max_seq})")
         self._sync()
         t0 = time.perf_counter()
-        logits, self.cache = self._decode(
-            self.params, self._tensor(tokens), self.cache, self.cache_pos,
-            self.valid_from)
+        self._token.copy_(self._host(tokens).reshape(self.batch_size, 1))
+        self._pos.fill_(self.cache_pos)
+        logits = self._run("decode")
         out = logits[:, 0].cpu().numpy()
         self.cache_pos += 1
         self.stats.decode_calls += 1
@@ -206,8 +315,9 @@ class InferenceEngine:
         is prefilled at absolute positions cache_pos-T .. cache_pos-1 in
         a private cache, then merged into the live batch cache; its
         valid_from masks both the padding and whatever the slot's retired
-        previous occupant left behind. Returns next-token logits (V,)."""
-        if self.cache is None:
+        previous occupant left behind. Runs eagerly, also on the card.
+        Returns next-token logits (V,)."""
+        if self.cache_pos == 0:
             raise RuntimeError("no KV cache — call run_prefill first")
         if not self._backfillable:
             raise NotImplementedError(
@@ -229,9 +339,9 @@ class InferenceEngine:
         self._sync()
         t0 = time.perf_counter()
         logits, rcache = self._prefill_row(
-            self.params, self._tensor(prompt[None]), offset,
-            self._tensor([vf_row]))
-        self.cache = self._merge(self.cache, rcache, slot, offset, T)
+            self._host(prompt[None]).to(self.device), offset,
+            self._host([vf_row]).to(self.device))
+        self._merge(self.cache, rcache, slot, offset, T)
         self.valid_from[slot] = vf_row
         out = logits[0, 0].cpu().numpy()
         self._sync()

@@ -16,6 +16,7 @@ from repro.quant.int8 import quantize_exec_tree as jax_quantize
 from repro.serving.engine import InferenceEngine as JaxEngine
 from repro_torch.configs import reduced_config
 from repro_torch.models import from_jax
+from repro_torch.models.params import tree_leaves
 from repro_torch.quant.int8 import quantize_exec_tree
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.measured import build_model
@@ -133,3 +134,117 @@ def test_measured_profile_split_and_free_context():
     assert p["mu"] == pytest.approx(
         p["prefill_ms"] + 3 * p["per_token_ms"], rel=1e-9)
     assert eng.free_context == 32 - 8 - 3
+
+
+def _two_groups(eng, rng, vocab):
+    """One engine serves two groups in turn, the second with a shorter
+    prompt than the first (so the first group's slots lie stale past it
+    in the cache), and a backfill into the second. Returns the logits of
+    every step, in order."""
+    out = []
+
+    def greedy():
+        return out[-1].argmax(-1).astype(np.int32)[:, None]
+    p1 = rng.integers(0, vocab, (2, 8), dtype=np.int32)
+    out.append(eng.run_prefill(p1, lengths=[8, 5]))
+    for _ in range(4):
+        out.append(eng.run_decode(greedy()))
+    p2 = rng.integers(0, vocab, (2, 5), dtype=np.int32)
+    out.append(eng.run_prefill(p2, lengths=[5, 3]))
+    for _ in range(2):
+        out.append(eng.run_decode(greedy()))
+    nxt = greedy()
+    row = np.zeros(6, np.int32)
+    row[2:] = rng.integers(0, vocab, 4, dtype=np.int32)
+    out.append(eng.prefill_row(row, 0, length=4))
+    nxt[0, 0] = out[-1].argmax(-1)
+    out.append(eng.run_decode(nxt))
+    for _ in range(2):
+        out.append(eng.run_decode(greedy()))
+    return out
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_two_groups_and_backfill_match_jax_engine(quant):
+    """The persistent cache across groups and a backfill: the port's
+    engine generates the JAX engine's greedy tokens at every step."""
+    kw = dict(d_model=96, d_ff=192, n_layers=2)
+    jcfg, jp, tp = _weights(9, **kw)
+    if quant:
+        jp, tp = jax_quantize(jp), quantize_exec_tree(tp)
+    je = JaxEngine(jcfg, jp, batch_size=2, max_seq=32)
+    te = _engine(tp, **kw)
+    want = _two_groups(je, np.random.default_rng(9), jcfg.vocab)
+    got = _two_groups(te, np.random.default_rng(9), jcfg.vocab)
+    assert len(got) == len(want) == 12
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.argmax(-1), w.argmax(-1))
+
+
+def _fresh_cache_run(eng, rng, vocab):
+    """What _two_groups computes, through `models.model` on a fresh cache
+    for each group (the backfill's row cache merged as the engine does)."""
+    from repro_torch.models.model import (decode_step, forward, init_cache,
+                                          prefill)
+    cfg, params, out = eng.cfg, eng.params, []
+
+    def group(T, lengths):
+        toks = torch.from_numpy(rng.integers(0, vocab, (2, T),
+                                             dtype=np.int32))
+        vf = torch.tensor([T - n for n in lengths], dtype=torch.int32)
+        lg, cache = prefill(params, toks, cfg, eng.max_seq,
+                            logits_last_only=True, valid_from=vf)
+        out.append(lg[:, 0].numpy())
+        return cache, vf
+
+    def decode(cache, pos, vf, n, nxt=None):
+        for i in range(n):
+            tok = out[-1].argmax(-1).astype(np.int32)[:, None] \
+                if nxt is None or i else nxt
+            lg, cache = decode_step(params, torch.from_numpy(tok), cache,
+                                    pos + i, cfg, valid_from=vf)
+            out.append(lg[:, 0].numpy())
+    cache, vf = group(8, [8, 5])
+    decode(cache, 8, vf, 4)
+    cache, vf = group(5, [5, 3])
+    decode(cache, 5, vf, 2)
+    nxt = out[-1].argmax(-1).astype(np.int32)[:, None]
+    row = np.zeros(6, np.int32)
+    row[2:] = rng.integers(0, vocab, 4, dtype=np.int32)
+    rc = init_cache(cfg, 1, eng.max_seq, device="cpu")
+    lg, _ = forward(params, torch.from_numpy(row[None]), cfg, cache=rc,
+                    positions=1 + torch.arange(6, dtype=torch.int32),
+                    logits_last_only=True,
+                    valid_from=torch.tensor([3], dtype=torch.int32))
+    out.append(lg[0, 0].numpy())
+    InferenceEngine._merge(cache, rc, 0, 1, 6)
+    vf[0] = 3
+    nxt[0, 0] = out[-1].argmax(-1)
+    decode(cache, 7, vf, 3, nxt)
+    return out
+
+
+@pytest.mark.parametrize("impl, quant", [("naive", None), ("cuda", None),
+                                         ("cuda", "int8")])
+def test_engine_steps_match_model_on_fresh_cache(impl, quant):
+    """The engine's steps over its one persistent cache (stale slots of
+    an earlier group past the prompt) give the bits of `models.model`
+    prefill / decode_step on a fresh cache, the backfill included; the
+    cache and the static inputs keep their storage throughout."""
+    kw = dict(d_model=96, d_ff=192, n_layers=2)
+    _, _, tp = _weights(10, **kw)
+    if quant:
+        tp = quantize_exec_tree(tp)
+    eng = _engine(tp, impl, **kw)
+    ptrs = [t.data_ptr() for t in tree_leaves(eng.cache)]
+    static = [eng.valid_from.data_ptr(), eng._token.data_ptr(),
+              eng._pos.data_ptr()]
+    got = _two_groups(eng, np.random.default_rng(10), eng.cfg.vocab)
+    want = _fresh_cache_run(eng, np.random.default_rng(10), eng.cfg.vocab)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert np.array_equal(g, w), i
+    assert [t.data_ptr() for t in tree_leaves(eng.cache)] == ptrs
+    assert [eng.valid_from.data_ptr(), eng._token.data_ptr(),
+            eng._pos.data_ptr()] == static
+    assert eng.stats.graph_captures == eng.stats.graph_replays == 0

@@ -360,6 +360,146 @@ def test_decode_attention_one_launch(cuda):
     assert ops.launch_counts()["decode_attention"] == before + 1
 
 
+@pytest.mark.parametrize("linear", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_graph_reads_cache_pos(cuda, dtype, linear):
+    """One call captured alone in a CUDA graph, then replayed at several
+    positions written to its cache_pos scalar, gives the bits of eager
+    calls at those positions: the kernel reads the position when it
+    runs, with the linear skip on and off."""
+    q, k, v, pos = _decode_case(cuda, 3, 700, 16, 2, 128, 699, dtype)
+    vf = torch.tensor([0, 100, 650], dtype=torch.int32, device="cuda")
+    cpos = torch.full((), 699, dtype=torch.int32, device="cuda")
+    call = lambda c: ops.decode_attention(q, k, v, pos, c, vf, softcap=30.0,
+                                          linear=linear)
+    call(cpos)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call(cpos)
+    for c in (0, 37, 255, 256, 649, 650, 699):
+        cpos.fill_(c)
+        graph.replay()
+        want = call(c)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), c
+
+
+def _serve_steps(eng, gen, V, steps=34, backfill_at=12):
+    """A group at T=40 (ragged), `steps` decode steps with a backfill into
+    slot 1 before step backfill_at, then a group at T=24 and 4 decode
+    steps: the engine's logits at every step, in order, and what was fed.
+    """
+    B, out, fed = eng.batch_size, [], []
+
+    def prompts(T):
+        p = torch.randint(0, V, (B, T), generator=gen, device="cuda")
+        fed.append(p.cpu().numpy().astype("int32"))
+        return fed[-1]
+    out.append(eng.run_prefill(prompts(40), lengths=[40, 17, 33, 1]))
+    for i in range(steps):
+        nxt = out[-1].argmax(-1).astype("int32")[:, None]
+        if i == backfill_at:
+            row = prompts(40)[0].copy()
+            row[:20] = 0
+            out.append(eng.prefill_row(row, 1, length=20))
+            nxt[1, 0] = out[-1].argmax(-1)
+        out.append(eng.run_decode(nxt))
+    out.append(eng.run_prefill(prompts(24), lengths=[24, 24, 3, 10]))
+    for _ in range(4):
+        out.append(eng.run_decode(out[-1].argmax(-1).astype("int32")[:, None]))
+    return out, fed
+
+
+def _eager_steps(eng, fed, steps=34, backfill_at=12):
+    """What _serve_steps computed, through `models.model` on a fresh
+    cache for each group; the backfill's row prefill through `forward`
+    on a fresh row cache, merged as the engine merges it."""
+    from repro_torch.models.model import (decode_step, forward, init_cache,
+                                          prefill)
+    from repro_torch.serving.engine import InferenceEngine
+    cfg, params, out = eng.cfg, eng.params, []
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def group(toks, lengths):
+        T = toks.shape[1]
+        vf = torch.tensor([T - n for n in lengths], **i32)
+        lg, cache = prefill(params, torch.tensor(toks, device="cuda"), cfg,
+                            eng.max_seq, logits_last_only=True, valid_from=vf)
+        out.append(lg[:, 0].cpu().numpy())
+        return cache, vf
+
+    def decode(cache, pos, vf, nxt):
+        lg, _ = decode_step(params, torch.tensor(nxt, device="cuda"), cache,
+                            pos, cfg, valid_from=vf)
+        out.append(lg[:, 0].cpu().numpy())
+    with torch.no_grad():
+        cache, vf = group(fed[0], [40, 17, 33, 1])
+        for i in range(steps):
+            nxt = out[-1].argmax(-1).astype("int32")[:, None]
+            if i == backfill_at:
+                row = fed[1][0].copy()
+                row[:20] = 0
+                pos = 40 + i
+                rc = init_cache(cfg, 1, eng.max_seq, device="cuda")
+                lg, _ = forward(
+                    params, torch.tensor(row[None], device="cuda"), cfg,
+                    cache=rc, positions=pos - 40 + torch.arange(40, **i32),
+                    logits_last_only=True,
+                    valid_from=torch.tensor([pos - 20], **i32))
+                out.append(lg[0, 0].cpu().numpy())
+                InferenceEngine._merge(cache, rc, 1, pos - 40, 40)
+                vf[1] = pos - 20
+                nxt[1, 0] = out[-1].argmax(-1)
+            decode(cache, 40 + i, vf, nxt)
+        cache, vf = group(fed[2], [24, 24, 3, 10])
+        for i in range(4):
+            decode(cache, 24 + i, vf,
+                   out[-1].argmax(-1).astype("int32")[:, None])
+    return out
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_engine_graphs_match_eager_model(cuda, quant):
+    """The engine on the card (decode as one captured graph, prefill as
+    one a prompt length, over one persistent cache) gives the bits of
+    `models.model` run eagerly on a fresh cache, over 34 decode steps
+    with a backfill mid-group and a second group at a shorter T. Each
+    replay counts the launches its graph records."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.quant.int8 import quantize_exec_tree
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = dataclasses.replace(reduced_config("stablelm_1_6b"), d_model=256,
+                              d_ff=512, n_layers=2, attn_impl="cuda")
+    params = init_params(cfg, 0, device="cuda")
+    if quant:
+        params = quantize_exec_tree(params)
+    eng = InferenceEngine(cfg, params, batch_size=4, max_seq=128)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got, fed = _serve_steps(eng, cuda, cfg.vocab)
+    want = _eager_steps(eng, fed)
+    assert len(got) == len(want) == 41
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g == w).all(), i
+    st = eng.stats
+    assert st.graph_captures == 3          # decode, prefill at 40 and 24
+    assert st.graph_replays == 2 + 38 and st.compile_time_s > 0
+    per_step = eng._graphs["decode"].launches
+    assert per_step["decode_attention"] == cfg.n_layers
+    assert per_step["flash_attention"] == 0
+    assert per_step["int8_matmul"] == (7 * cfg.n_layers if quant else 0)
+    before = ops.launch_counts()
+    with torch.no_grad():
+        eng.run_decode(fed[2][:, :1])
+    after = ops.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        n: per_step[n] for n in after}
+
+
 def _int8_case(gen, M, K, N, dtype, x_pad=0, w_off=0):
     x = _randn(gen, (M, K + x_pad), dtype)[:, :K]
     wq = torch.randint(-127, 128, (K * N + w_off,), generator=gen,

@@ -200,6 +200,61 @@ def test_ops_decode_unwritten_slots_match_jax(ring, rng):
     assert not got[2].any()
 
 
+@pytest.mark.parametrize("form", ["0-d", "1-element"])
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("entry", ["ops", "ref"])
+def test_decode_tensor_cache_pos_matches_jax(entry, ring, form, rng):
+    """cache_pos as an int32 tensor (the form a captured decode step
+    reads from device memory): `ops.decode_attention` against the JAX
+    ops (Pallas, interpret mode) and `decode_attention_ref` against the
+    JAX plain version given jnp.int32(cache_pos), within 2e-5."""
+    B, Hq, KV, S, hd, cache_pos = 3, 4, 2, 48, 16, 37
+    q = rng.normal(size=(B, 1, Hq, hd)).astype(np.float32)
+    k = rng.normal(size=(B, S, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(B, S, KV, hd)).astype(np.float32)
+    pos = (np.arange(S) + 11) % 45 if ring else np.arange(S)
+    pos = np.where(pos <= cache_pos, pos, -1).astype(np.int32)
+    vf = np.asarray([0, 9, 38], np.int32)
+    tpos = torch.tensor(cache_pos, dtype=torch.int32)
+    if form == "1-element":
+        tpos = tpos.reshape(1)
+    jq, jk, jv, jp, jvf = map(jnp.asarray, (q, k, v, pos, vf))
+    tq, tk, tv, tp, tvf = map(torch.from_numpy, (q, k, v, pos, vf))
+    if entry == "ops":
+        want = jops.decode_attention(jq, jk, jv, jp, jnp.int32(cache_pos),
+                                     jvf, block_s=16, linear=not ring)
+        got = ops.decode_attention(tq, tk, tv, tp, tpos, tvf,
+                                   linear=not ring)
+    else:
+        kt, vt = jnp.swapaxes(jk, 1, 2), jnp.swapaxes(jv, 1, 2)
+        want = jax_decode_ref(jq[:, 0], kt, vt, jp, jnp.int32(cache_pos),
+                              cap=30.0, window=16, valid_from=jvf)
+        got = R.decode_attention_ref(tq[:, 0], tk.transpose(1, 2),
+                                     tv.transpose(1, 2), tp, tpos, cap=30.0,
+                                     window=16, valid_from=tvf)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+    assert not got[2].any()       # vf past cache_pos: exact zeros
+
+
+def test_decode_wrapper_cache_pos_forms():
+    """The kernel reads cache_pos from one int32 on the device: the
+    wrapper passes such a tensor as it is, makes one from an int, and
+    refuses any other tensor (no silent copy)."""
+    from repro_torch.kernels.decode_attention import _device_cache_pos
+    cpu = torch.device("cpu")
+    t = torch.tensor(5, dtype=torch.int32)
+    assert _device_cache_pos(t, cpu) is t
+    one = torch.tensor([5], dtype=torch.int32)
+    assert _device_cache_pos(one, cpu) is one
+    made = _device_cache_pos(7, cpu)
+    assert made.dtype == torch.int32 and made.tolist() == [7]
+    for bad in (torch.tensor(5), torch.tensor([5, 6], dtype=torch.int32),
+                torch.empty((), dtype=torch.int32, device="meta")):
+        with pytest.raises(ValueError, match="one int32"):
+            _device_cache_pos(bad, cpu)
+
+
 def test_ops_int8_nonmultiple_matches_jax(rng):
     x = rng.normal(size=(5, 70)).astype(np.float32)
     wq, sc = quantize_int8(jnp.asarray(rng.normal(size=(70, 33)),
@@ -746,3 +801,21 @@ def test_ops_reject_mixed_devices():
     x = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError, match="mixed devices"):
         ops._on_cpu(x, torch.empty(0, device="meta"))
+
+
+def test_replay_counts_add_to_launch_counts():
+    """A graph replay runs its kernels without calling the wrappers:
+    count_replay adds the launches it recorded, which launch_counts and
+    int8_prefill_launches include and replayed_counts reports apart."""
+    ops.reset_launch_counts()
+    graph = {"flash_attention": 0, "decode_attention": 2, "int8_matmul": 14,
+             "int8_matmul_prefill": 0}
+    ops.count_replay(graph)
+    ops.count_replay(graph)
+    assert ops.replayed_counts() == {n: 2 * c for n, c in graph.items()}
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "decode_attention": 4, "int8_matmul": 28}
+    assert ops.int8_prefill_launches() == 0
+    ops.reset_launch_counts()
+    assert set(ops.replayed_counts().values()) == {0}
+    assert set(ops.launch_counts().values()) == {0}

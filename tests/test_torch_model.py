@@ -202,3 +202,96 @@ def test_unported_kinds_raise():
     pos = torch.arange(4097)
     with pytest.raises(NotImplementedError, match="chunked"):
         attention(q, q, q, pos, pos, big, window=0)
+
+
+def _slice_weights(impl, quant=None, seed=7):
+    """The slice's reduced size (2 layers, d 96): reference config and
+    params, and the port's on the same weights."""
+    kw = dict(d_model=96, d_ff=192, n_layers=2)
+    jcfg = dataclasses.replace(jax_reduced_config("stablelm_1_6b"),
+                               attn_impl="naive", **kw)
+    tcfg = dataclasses.replace(reduced_config("stablelm_1_6b"),
+                               attn_impl=impl, **kw)
+    jp = jax_init_params(jcfg, jax.random.PRNGKey(seed))
+    tp = from_jax(jp, device="cpu")
+    if quant == "int8":
+        jp, tp = jax_quantize(jp), quantize_exec_tree(tp)
+    return jcfg, jp, tcfg, tp
+
+
+@pytest.mark.parametrize("impl", ["naive", "cuda"])
+def test_decode_step_tensor_cache_pos(impl):
+    """cache_pos as a 0-d int32 tensor (what a captured step reads) gives
+    the int form's bits, in the logits and in every cache tensor, and the
+    reference's decode_step given jnp.int32(pos), within 2e-5."""
+    jcfg, jp, tcfg, tp = _slice_weights(impl)
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, jcfg.vocab, (2, 8)).astype(np.int32)
+    dec = rng.integers(0, jcfg.vocab, (3, 2, 1)).astype(np.int32)
+    vf = np.asarray([0, 3], np.int32)
+    lg, jc = jax_prefill(jp, jnp.asarray(toks), jcfg, 16,
+                         logits_last_only=True, valid_from=jnp.asarray(vf))
+    tvf = torch.from_numpy(vf)
+    _, c_int = prefill(tp, torch.from_numpy(toks), tcfg, 16,
+                       logits_last_only=True, valid_from=tvf)
+    _, c_t = prefill(tp, torch.from_numpy(toks), tcfg, 16,
+                     logits_last_only=True, valid_from=tvf)
+    for s in range(3):
+        want, jc = jax_decode_step(jp, jnp.asarray(dec[s]), jc,
+                                   jnp.int32(8 + s), jcfg,
+                                   valid_from=jnp.asarray(vf))
+        tok = torch.from_numpy(dec[s])
+        a, c_int = decode_step(tp, tok, c_int, 8 + s, tcfg, valid_from=tvf)
+        b, c_t = decode_step(tp, tok, c_t, torch.tensor(8 + s,
+                                                        dtype=torch.int32),
+                             tcfg, valid_from=tvf)
+        assert torch.equal(a, b)
+        _close(b, want, 2e-5)
+    for x, y in zip(tree_leaves(c_int), tree_leaves(c_t)):
+        assert torch.equal(x, y)
+    for part in ("blocks", "tail"):
+        assert len(c_t[part]) == len(jc[part])
+        for tc, jcd in zip(c_t[part], jc[part]):
+            np.testing.assert_array_equal(tc["pos"].numpy(), jcd["pos"])
+            _close(tc["k"], jcd["k"], 2e-5)
+            _close(tc["v"], jcd["v"], 2e-5)
+    with pytest.raises(ValueError, match="0-d int32"):
+        decode_step(tp, tok, c_t, torch.tensor([11]), tcfg)
+
+
+@pytest.mark.parametrize("impl", ["naive", "cuda"])
+def test_prefill_into_given_cache(impl):
+    """prefill(cache=...) writes into the given cache (the engine's
+    persistent one): after a longer group and a decode step left stale
+    slots in it, a shorter prefill and the decode after it give the bits
+    of a fresh cache, and the reference's prefill within 2e-5."""
+    jcfg, jp, tcfg, tp = _slice_weights(impl)
+    rng = np.random.default_rng(11)
+    long = torch.from_numpy(rng.integers(0, jcfg.vocab, (2, 8))
+                            .astype(np.int32))
+    toks = rng.integers(0, jcfg.vocab, (2, 5)).astype(np.int32)
+    tok = torch.from_numpy(rng.integers(0, jcfg.vocab, (2, 1))
+                           .astype(np.int32))
+    vf = np.asarray([0, 2], np.int32)
+    tvf = torch.from_numpy(vf)
+    _, kept = prefill(tp, long, tcfg, 16)
+    _, kept = decode_step(tp, tok, kept, 8, tcfg)
+    ptrs = [x.data_ptr() for x in tree_leaves(kept)]
+    a, c_kept = prefill(tp, torch.from_numpy(toks), tcfg, 16,
+                        logits_last_only=True, valid_from=tvf, cache=kept)
+    b, c_new = prefill(tp, torch.from_numpy(toks), tcfg, 16,
+                       logits_last_only=True, valid_from=tvf)
+    assert c_kept is kept
+    assert [x.data_ptr() for x in tree_leaves(c_kept)] == ptrs
+    assert torch.equal(a, b)
+    want, _ = jax_prefill(jp, jnp.asarray(toks), jcfg, 16,
+                          logits_last_only=True, valid_from=jnp.asarray(vf))
+    _close(a, want, 2e-5)
+    for x, y in zip(c_kept["blocks"] + c_kept["tail"],
+                    c_new["blocks"] + c_new["tail"]):
+        assert torch.equal(x["pos"], y["pos"])
+        for key in ("k", "v"):
+            assert torch.equal(x[key][..., :5, :, :], y[key][..., :5, :, :])
+    a, _ = decode_step(tp, tok, c_kept, 5, tcfg, valid_from=tvf)
+    b, _ = decode_step(tp, tok, c_new, 5, tcfg, valid_from=tvf)
+    assert torch.equal(a, b)
