@@ -11,10 +11,14 @@ Phases (each prints its results, one line each):
            kernels; a spill in flash or decode fails the run)
   kernels  every kernel against its plain PyTorch version on the card at
            the serving path's full-width shapes (fp32 and bf16; flash
-           and decode also at the heads of yi_9b and gemma2_9b, decode
-           checked at those of qwen3_moe_235b and recurrentgemma_2b too;
-           int8 at the decode M and the serve and model phases' prefill
-           M), the bit-exact pins (flash and decode at each heads and
+           and decode also at the heads of yi_9b, gemma2_9b and
+           recurrentgemma-2b as it runs them (16/1/256), decode checked
+           at those of qwen3_moe_235b and unpadded recurrentgemma_2b
+           too; flash and decode also at recurrentgemma-2b's model
+           shapes: prefill at T = 2040 and 2560 with window 2048, its
+           2048-slot ring wrapped; int8 at the decode M and the serve
+           and model phases' prefill M, for stablelm's and
+           recurrentgemma's projections), the bit-exact pins (flash and decode at each heads and
            dtype: valid_from = 0 gives the bits of None, two calls give
            the same bits; decode: the linear skip gives those of the full
            scan; int8: two calls), and each kernel's time beside its
@@ -37,6 +41,18 @@ Phases (each prints its results, one line each):
            included), and that of the int8 kernel's prefill path, must
            be > 0 here; each engine's captures, replays and capture
            seconds
+  recurrent
+           recurrentgemma-2b (fp32, int8) and mamba2-2.7b (fp32) at their
+           published size, batch 4, max_seq 4096: the engine's graphs
+           against models.model run eagerly on a fresh cache, bit for
+           bit at every step (recurrentgemma: a group at T = 2040 and
+           24 decode steps across position 2048, where the local
+           layers' ring wraps, then T = 2560 and 8 steps; mamba2: T =
+           512 and 300, 8 steps each); recurrentgemma's cuda path
+           against its naive path (int8: on the dequantized weights);
+           mamba2's steps against one forward over the sequence; then
+           the recurrent path: CNNSelectServer over the three
+           candidates, whose graph replays must launch every kernel
   profile  (only when asked for) where the time of a full-width decode
            step and of a full-width prefill (T = 64 and 512) goes,
            through the engine's graphs and through models.model called
@@ -45,6 +61,10 @@ Phases (each prints its results, one line each):
            kernel time from torch.profiler, decode_attention's,
            int8_matmul's and flash_attention's shares, and the kernels
            that take it (ms a step)
+  profile_recurrent
+           (only when asked for) the same for each recurrent candidate
+           (B = 4, prompt 2040), with the device time of the
+           plain-torch RG-LRU and SSD functions (profiler ranges)
   tune     (only when asked for) the prefill int8 path's variants side
            by side: the source as it is, each tile's ring 2 <-> 3 stages
            deep, and each tile forced, built from csrc/int8_matmul.cu
@@ -60,6 +80,7 @@ repository, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import re
@@ -72,8 +93,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "model", "serve")
-EXTRA_PHASES = ("profile", "tune")
+PHASES = ("build", "kernels", "model", "serve", "recurrent")
+EXTRA_PHASES = ("profile", "profile_recurrent", "tune")
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth; fp32 on the
 # CUDA cores, where decode attention and the decode int8 path compute;
@@ -89,6 +110,12 @@ FLASH_PEAK_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 # Copies of a weight to rotate through for an L2-cold time: well over
 # the H100's 50 MB L2, as a decode step streams 1.2 GB of weights.
 COLD_BYTES = 256 << 20
+# Most operand copies of an L2-cold decode time: its 2 x COLD_COPIES
+# calls (about 0.1 ms of host time each) queue behind one sleeping
+# kernel. Binds only where a head group's attended rows are small
+# (recurrentgemma-2b's one kv head at context 70 in bf16: 722 copies
+# would fill the L2 4 times over, 400 fill it 2.3 times).
+COLD_COPIES = 400
 
 # Full-width serving shapes of stablelm-1.6b (configs/stablelm_1_6b.py).
 B, H, HD, D, F = 4, 32, 64, 2048, 5632
@@ -101,14 +128,34 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # Attention heads of the flash checks and times (Hq, KV, hd): stablelm-
 # 1.6b's, and the reference configs' at head dims 128 and 256, from
 # src/repro/configs/yi_9b.py and gemma2_9b.py.
+# recurrentgemma-2b's local attention as its model runs it
+# (src/repro/configs/recurrentgemma_2b.py): the 10 q heads padded to
+# tp_pad_heads = 16 (q_heads_padded), on 1 kv head, hd 256, window 2048,
+# no softcap; "recurrentgemma_2b" below is the unpadded 10/1/256.
+RG = "recurrentgemma_2b_q16"
+RG_HEADS, RG_WINDOW = (16, 1, 256), 2048
 FLASH_HEADS = {"stablelm_1_6b": (H, H, HD), "yi_9b": (32, 4, 128),
-               "gemma2_9b": (16, 8, 256)}
+               "gemma2_9b": (16, 8, 256), RG: RG_HEADS}
 # Heads of the decode checks: the flash heads, checked and timed, and the
 # most q heads per kv head of the reference configs, checked only
 # (src/repro/configs/qwen3_moe_235b.py, rep 16; recurrentgemma_2b.py,
 # rep 10 at hd 256).
 DECODE_HEADS = dict(FLASH_HEADS, qwen3_moe_235b=(64, 4, 128),
                     recurrentgemma_2b=(10, 1, 256))
+# The recurrent phases: batch, the engines' max_seq (the local layers
+# keep a ring of RG_WINDOW slots), recurrentgemma's prompt lengths (a
+# group at 2040 whose decode steps cross position 2048, where the ring
+# wraps; a prefill at 2560 > the window), its int8 projections (K, N):
+# w_up / w_gate, w_down, wq, wk / wv, wo (d_model 2560, d_ff 7680).
+RG_B, RG_MAX_SEQ = 4, 4096
+RG_T = (2040, 2560)
+RG_PROJ_KN = ((2560, 7680), (7680, 2560), (2560, 4096), (2560, 256),
+              (4096, 2560))
+# int8 shapes checked and timed: stablelm's, then recurrentgemma's at
+# the decode M and the prefill M of a group at RG_T[0].
+INT8_SHAPES = ([(M, K, N) for M in INT8_M for K, N in PROJ_KN]
+               + [(M, K, N) for M in (RG_B, RG_B * RG_T[0])
+                  for K, N in RG_PROJ_KN])
 # The decode main shape: the ragged prefill's rows (valid_from = T_PREFILL
 # - lengths) 16 tokens on, and the profile's decode step's context.
 DECODE_CPOS, DECODE_VF = T_PREFILL + 16, [0, 212, 383, 475]
@@ -324,6 +371,10 @@ def _flash_cases():
             vf=[0, 5, 100, 1], cap=50.0, window=128, T=T - 3)
     yield "gemma2_9b", "long S, vf + softcap", dict(B=2, T=4096,
                                                     vf=[0, 1500], cap=50.0)
+    # recurrentgemma-2b's local layers as its prefill runs them.
+    for T in RG_T:
+        yield RG, f"model prefill T={T}", dict(B=RG_B, T=T, vf=None,
+                                                window=RG_WINDOW)
 
 
 def _flash_inputs(gen, dtype, Hq, KV, hd, T=T_PREFILL, Bn=B):
@@ -335,10 +386,15 @@ def _flash_inputs(gen, dtype, Hq, KV, hd, T=T_PREFILL, Bn=B):
 
 def _decode_pos(kind, cpos, S=S_CACHE):
     """Stored positions of a cache of S slots at cache_pos cpos: linear
-    (slot == position) or a ring (slot != position); -1 past cpos."""
+    (slot == position), a ring (slot != position), or a ring as the
+    model writes it (`wrap`: slot s holds the latest position p <= cpos
+    with p % S == s); -1 past cpos."""
     s = torch.arange(S, device="cuda")
     if kind == "linear":
         pos = s
+    elif kind == "wrap":
+        pos = cpos - (cpos - s) % S
+        return torch.where(pos >= 0, pos, -1).to(torch.int32)
     else:   # ring: slot != position
         pos = (s + 17) % (S - 3)
     return torch.where(pos <= cpos, pos, -1).to(torch.int32)
@@ -377,6 +433,12 @@ def _decode_cases():
             kind="ring", cpos=DECODE_CPOS, vf=[0, 37, 300, 500], holes=True)
     yield "gemma2_9b", "long S", dict(kind="linear", B=2, S=4096, cpos=4000,
                                       vf=[0, 1500])
+    # recurrentgemma-2b's local layers' ring as its decode reads it:
+    # full, just wrapped, 16 on, and after a prefill past the window.
+    for cpos in (RG_WINDOW - 1, RG_WINDOW, RG_WINDOW + 15, RG_T[1] + 7):
+        yield RG, f"model ring, cache_pos {cpos}", dict(
+            kind="wrap", B=RG_B, S=RG_WINDOW, cpos=cpos, vf=None,
+            window=RG_WINDOW)
 
 
 def _edge_masks(chunk, edge):
@@ -529,31 +591,31 @@ def phase_kernels(results):
     iworst = 0.0
     ipins = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for M in INT8_M:
-            for K, N in PROJ_KN:
-                x = _randn(gen, (M, K), dtype)
-                wq = torch.randint(-127, 128, (K, N), generator=gen,
-                                   device="cuda", dtype=torch.int8)
-                sc = torch.rand((N,), generator=gen, device="cuda") * 1e-3
-                out = ops.int8_matmul(x, wq, sc)
-                ref = R.int8_matmul_ref(x, wq, sc)
-                err = float((out.float() - ref.float()).abs().max())
-                scale_ = max(1.0, float(ref.float().abs().max()))
-                ok = err <= INT8_TOL[dtype] * scale_
-                if dtype == torch.float32:
-                    iworst = max(iworst, err / scale_)
-                log(f"int8 {str(dtype)[6:]} M={M} K={K} N={N}: "
-                    f"max_abs_err={err:.3e} max|ref|={scale_:.3e} "
-                    f"tol={INT8_TOL[dtype]}*max|ref| "
-                    f"{'ok' if ok else 'FAIL'}")
-                require(ok, f"int8 M={M} K={K} N={N} {dtype}")
-                if M <= B * T_SERVE:   # the decode path and a prefill M
-                    same = torch.equal(ops.int8_matmul(x, wq, sc), out)
-                    ipins[f"M={M} K={K} N={N} {str(dtype)[6:]}"] = same
-                    log(f"int8 pin M={M} K={K} N={N} {str(dtype)[6:]}: two "
-                        f"calls bit-identical: {same}")
-                    require(same, f"int8 determinism M={M} K={K} N={N} "
-                                  f"{dtype}")
+        for M, K, N in INT8_SHAPES:
+            x = _randn(gen, (M, K), dtype)
+            wq = torch.randint(-127, 128, (K, N), generator=gen,
+                               device="cuda", dtype=torch.int8)
+            sc = torch.rand((N,), generator=gen, device="cuda") * 1e-3
+            out = ops.int8_matmul(x, wq, sc)
+            ref = R.int8_matmul_ref(x, wq, sc)
+            err = float((out.float() - ref.float()).abs().max())
+            scale_ = max(1.0, float(ref.float().abs().max()))
+            ok = err <= INT8_TOL[dtype] * scale_
+            if dtype == torch.float32:
+                iworst = max(iworst, err / scale_)
+            log(f"int8 {str(dtype)[6:]} M={M} K={K} N={N}: "
+                f"max_abs_err={err:.3e} max|ref|={scale_:.3e} "
+                f"rel={err / scale_:.3e} tol={INT8_TOL[dtype]}*max|ref| "
+                f"{'ok' if ok else 'FAIL'}")
+            require(ok, f"int8 M={M} K={K} N={N} {dtype}")
+            if M <= B * T_SERVE:   # the decode path and a prefill M
+                same = torch.equal(ops.int8_matmul(x, wq, sc), out)
+                ipins[f"M={M} K={K} N={N} {str(dtype)[6:]}"] = same
+                log(f"int8 pin M={M} K={K} N={N} {str(dtype)[6:]}: two "
+                    f"calls bit-identical: {same}")
+                require(same, f"int8 determinism M={M} K={K} N={N} "
+                              f"{dtype}")
+            del x, wq, sc, out, ref
 
     # -- times at the main path's shapes (fp32, as the model runs) ---------
     f32 = torch.float32
@@ -600,10 +662,47 @@ def phase_kernels(results):
             torch.cuda.empty_cache()
             frows.append(r)
             log(f"time flash_attention {r['shape']}: {json.dumps(r)}")
+    # recurrentgemma-2b's local layers at its prefill's shapes: no
+    # valid_from, window 2048, so a query row attends min(i + 1, 2048)
+    # keys; every row of q, k and v is read.
+    Hq, KV, hd = RG_HEADS
+    for dtype in (f32, torch.bfloat16):
+        for T in RG_T:
+            q, k, v = _flash_inputs(gen, dtype, Hq, KV, hd, T, RG_B)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
+                v.transpose(1, 2)
+            pairs_rg = RG_B * sum(min(i + 1, RG_WINDOW) for i in range(T))
+            nbytes = RG_B * T * (2 * Hq + 2 * KV) * hd * q.element_size()
+            flops = 4 * hd * Hq * pairs_rg
+            tb, by = bound(nbytes, flops, dtype, FLASH_PEAK_FLOPS)
+            pq = torch.arange(T, device="cuda")
+            wmask = ((pq[None, :] <= pq[:, None])
+                     & (pq[None, :] > pq[:, None] - RG_WINDOW))
+            r = dict(
+                heads="recurrentgemma_2b model", dtype=str(dtype)[6:], hd=hd,
+                max_abs_err=errs[RG, dtype], tol=TOL[dtype],
+                ms=bench_ms(lambda: ops.flash_attention_btHd(
+                    q, k, v, window=RG_WINDOW)),
+                plain_ms=bench_ms(lambda: R.flash_attention_ref(
+                    qt, kt, vt, window=RG_WINDOW)),
+                bound_ms=tb, bound_by=by,
+                bound_fp32_cores_ms=bound(nbytes, flops, f32)[0],
+                library_ms=bench_ms(lambda: torch.nn.functional
+                                    .scaled_dot_product_attention(
+                                        qt, kt, vt, attn_mask=wmask,
+                                        enable_gqa=True)),
+                shape=f"recurrentgemma_2b local layer: B={RG_B} T=S={T} "
+                      f"Hq={Hq} KV={KV} hd={hd} {str(dtype)[6:]} window="
+                      f"{RG_WINDOW} valid_from=None")
+            del q, k, v, qt, kt, vt, wmask
+            torch.cuda.empty_cache()
+            frows.append(r)
+            log(f"time flash_attention {r['shape']}: {json.dumps(r)}")
     main = frows[0]   # stablelm heads, fp32: the main path's shape
     results["flash_attention"] = dict(
         main, max_abs_err=worst, rows=frows,
-        pins={p: all(r["pins"][p] for r in frows) for p in main["pins"]},
+        pins={p: all(r["pins"][p] for r in frows if "pins" in r)
+              for p in main["pins"]},
         shape=main["shape"] + "; max_abs_err: the largest over every fp32 "
               "check; bound_ms: bytes (q, k and v from valid_from on) or "
               "operations at three TF32 passes (fp32) or one bf16 pass on "
@@ -637,9 +736,10 @@ def phase_kernels(results):
             dmask = ((pos >= 0) & (pos <= cpos))[None, :] & (
                 pos[None, :] >= vf[:, None])
             # Copies of K and V whose attended rows fill the L2 4 times
-            # over (at most 4 GB of copies).
+            # over (at most 4 GB of copies, and at most COLD_COPIES: the
+            # 2 x copies calls must all queue behind one sleep).
             n = max(2, min(-(-4 * L2_BYTES // (n_valid * KV * hd * 2 * es)),
-                           (4 << 30) // (k.nbytes + v.nbytes)))
+                           (4 << 30) // (k.nbytes + v.nbytes), COLD_COPIES))
             kv = [(k.clone(), v.clone()) for _ in range(n)]
             r = dict(
                 heads=heads, dtype=str(dtype)[6:], cache_pos=cpos,
@@ -666,6 +766,47 @@ def phase_kernels(results):
             torch.cuda.empty_cache()
             drows.append(r)
             log(f"time decode_attention {r['shape']}: {json.dumps(r)}")
+    # recurrentgemma-2b's local layers at its decode's shape: a ring of
+    # RG_WINDOW slots that has wrapped (linear=False), every slot in the
+    # window, no valid_from.
+    Hq, KV, hd = RG_HEADS
+    cpos, S = RG_WINDOW + 15, RG_WINDOW
+    for dtype in (f32, torch.bfloat16):
+        q, k, v = _decode_inputs(gen, dtype, Hq, KV, hd, S, RG_B)
+        pos = _decode_pos("wrap", cpos, S)
+        cpt = torch.tensor(cpos, dtype=torch.int32, device="cuda")
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        es = q.element_size()
+        n_valid = RG_B * S
+        nbytes = (n_valid * KV * hd * 2 + 2 * RG_B * Hq * hd) * es + S * 4
+        tb, by = bound(nbytes, 4 * hd * Hq * n_valid, dtype)
+        dmask = ((pos >= 0) & (pos <= cpos) & (pos > cpos - RG_WINDOW))
+        n = max(2, -(-4 * L2_BYTES // (k.nbytes + v.nbytes)))
+        kv = [(k.clone(), v.clone()) for _ in range(n)]
+        r = dict(
+            heads="recurrentgemma_2b model", dtype=str(dtype)[6:],
+            cache_pos=cpos, max_abs_err=derrs[RG, dtype], tol=TOL[dtype],
+            ms=bench_ms(lambda: ops.decode_attention(
+                q, k, v, pos, cpt, window=RG_WINDOW)),
+            cold_ms=bench_cold_ms(lambda c: ops.decode_attention(
+                q, c[0], c[1], pos, cpt, window=RG_WINDOW), kv),
+            plain_ms=bench_ms(lambda: R.decode_attention_ref(
+                q[:, 0], kt, vt, pos, cpt, window=RG_WINDOW)),
+            bound_ms=tb, bound_by=by,
+            library_ms=bench_ms(lambda: torch.nn.functional
+                                .scaled_dot_product_attention(
+                                    q.transpose(1, 2), kt, vt,
+                                    attn_mask=dmask[None, None, None, :],
+                                    enable_gqa=True)),
+            plan=decode_plan(q[:, 0], kt, vt),
+            shape=f"recurrentgemma_2b local layer: B={RG_B} S={S} ring "
+                  f"(linear=False), wrapped, cache_pos={cpos} Hq={Hq} "
+                  f"KV={KV} hd={hd} {str(dtype)[6:]} window={RG_WINDOW} "
+                  f"valid_from=None")
+        del q, k, v, kt, vt, kv
+        torch.cuda.empty_cache()
+        drows.append(r)
+        log(f"time decode_attention {r['shape']}: {json.dumps(r)}")
     main = drows[0]   # stablelm heads, fp32, cache_pos 528
     results["decode_attention"] = dict(
         main, max_abs_err=dworst, rows=drows,
@@ -678,58 +819,62 @@ def phase_kernels(results):
               "c takes chunks c, c + splits, ... of the cache axis)")
 
     rows = {}
-    for M in INT8_M:
-        for K, N in PROJ_KN:
-            x = _randn(gen, (M, K), f32)
-            wq = torch.randint(-127, 128, (K, N), generator=gen,
-                               device="cuda", dtype=torch.int8)
-            sc = torch.rand((N,), generator=gen, device="cuda") * 1e-3
-            wd = wq.float() * sc
-            nbytes = M * K * 4 + K * N + N * 4 + M * N * 4
-            if M > B:
-                # The prefill path: two bf16 mma passes (hi and lo parts
-                # of fp32 x) on the tensor cores; beside it the bound of
-                # the same product on the CUDA cores in fp32.
-                tb, by = bound(nbytes, 2 * 2 * M * K * N, torch.bfloat16)
-            else:
-                tb, by = bound(nbytes, 2 * M * K * N, f32)
-            r = dict(ms=bench_ms(lambda: ops.int8_matmul(x, wq, sc)),
-                     plain_ms=bench_ms(lambda: R.int8_matmul_ref(x, wq, sc)),
-                     bound_ms=tb, bound_by=by,
-                     library_ms=bench_ms(lambda: torch.matmul(x, wd)))
-            if M > B:
-                r["bound_fp32_cores_ms"] = bound(nbytes, 2 * M * K * N,
-                                                 f32)[0]
-                r["plan"] = prefill_plan(x, wq)
-            else:
-                r["cold_ms"] = bench_cold_ms(
-                    lambda w: ops.int8_matmul(x, w, sc), copies(wq))
-                r["library_cold_ms"] = bench_cold_ms(
-                    lambda w: torch.matmul(x, w), copies(wd))
-                torch.cuda.empty_cache()
-                # What does not scale with K: the same call on 32 rows
-                # of K, and an empty kernel's launch; and the host's pace.
-                x32, w32 = x[:, :32].contiguous(), wq[:32]
-                r["k32_ms"] = bench_ms(lambda: ops.int8_matmul(x32, w32, sc))
-                r["empty_launch_ms"] = bench_ms(lambda: torch.cuda._sleep(0))
-                r["enqueue_ms"] = bench_ms(lambda: ops.int8_matmul(x, wq, sc),
-                                           queued=False)
-                # The grid the launcher chose, and how many of its
-                # clusters the card runs at once.
-                r["grid"] = small_m_plan(N, K)
-            rows[(M, K, N)] = r
-            log(f"time int8_matmul M={M} K={K} N={N} fp32: "
-                f"{json.dumps(r)}")
+    for M, K, N in INT8_SHAPES:
+        x = _randn(gen, (M, K), f32)
+        wq = torch.randint(-127, 128, (K, N), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        sc = torch.rand((N,), generator=gen, device="cuda") * 1e-3
+        wd = wq.float() * sc
+        nbytes = M * K * 4 + K * N + N * 4 + M * N * 4
+        if M > B:
+            # The prefill path: two bf16 mma passes (hi and lo parts
+            # of fp32 x) on the tensor cores; beside it the bound of
+            # the same product on the CUDA cores in fp32.
+            tb, by = bound(nbytes, 2 * 2 * M * K * N, torch.bfloat16)
+        else:
+            tb, by = bound(nbytes, 2 * M * K * N, f32)
+        r = dict(ms=bench_ms(lambda: ops.int8_matmul(x, wq, sc)),
+                 plain_ms=bench_ms(lambda: R.int8_matmul_ref(x, wq, sc)),
+                 bound_ms=tb, bound_by=by,
+                 library_ms=bench_ms(lambda: torch.matmul(x, wd)))
+        if M > B:
+            r["bound_fp32_cores_ms"] = bound(nbytes, 2 * M * K * N,
+                                             f32)[0]
+            r["plan"] = prefill_plan(x, wq)
+        else:
+            r["cold_ms"] = bench_cold_ms(
+                lambda w: ops.int8_matmul(x, w, sc), copies(wq))
+            r["library_cold_ms"] = bench_cold_ms(
+                lambda w: torch.matmul(x, w), copies(wd))
+            torch.cuda.empty_cache()
+            # What does not scale with K: the same call on 32 rows
+            # of K, and an empty kernel's launch; and the host's pace.
+            x32, w32 = x[:, :32].contiguous(), wq[:32]
+            r["k32_ms"] = bench_ms(lambda: ops.int8_matmul(x32, w32, sc))
+            r["empty_launch_ms"] = bench_ms(lambda: torch.cuda._sleep(0))
+            r["enqueue_ms"] = bench_ms(lambda: ops.int8_matmul(x, wq, sc),
+                                       queued=False)
+            # The grid the launcher chose, and how many of its
+            # clusters the card runs at once.
+            r["grid"] = small_m_plan(N, K)
+        rows[(M, K, N)] = r
+        log(f"time int8_matmul M={M} K={K} N={N} fp32: "
+            f"{json.dumps(r)}")
     results["int8_matmul"] = dict(
         rows[(B, D, F)], max_abs_err=iworst, pins=ipins,
         small_m=[dict(K=K, N=N, **rows[(B, K, N)]) for K, N in PROJ_KN],
         prefill=[dict(M=M, K=K, N=N, **rows[(M, K, N)])
                  for M in INT8_M[1:] for K, N in PROJ_KN],
+        recurrentgemma=[dict(M=M, K=K, N=N, **rows[(M, K, N)])
+                        for M, K, N in INT8_SHAPES[len(INT8_M) *
+                                                   len(PROJ_KN):]],
         shape=f"M={B} K={D} N={F} fp32 (decode w_up); max_abs_err is "
               f"relative to max|ref|; cold_ms: weights cold in L2; "
               f"small_m: the three decode shapes; prefill: the M > 8 path "
               f"at the serve and model phases' prefill M, its bound_ms "
-              f"at the bf16 tensor-core rate for two passes")
+              f"at the bf16 tensor-core rate for two passes; "
+              f"recurrentgemma: recurrentgemma-2b's projections at the "
+              f"decode M and a T={RG_T[0]} group's prefill M")
     for name in ("flash_attention", "decode_attention"):
         log(f"time {name}: {json.dumps(results[name])}")
 
@@ -1074,6 +1219,247 @@ def phase_serve(p32, p8):
 
 
 # --------------------------------------------------------------------------
+# Phase: recurrent (recurrentgemma-2b and mamba2-2.7b at full width)
+# --------------------------------------------------------------------------
+
+# Groups a run serves in turn, (prompt length, decode steps): for
+# recurrentgemma a group at RG_T[0] whose 24 steps cross position 2048,
+# where its local layers' ring wraps, then one at RG_T[1] > the window;
+# for mamba2 a prompt of two whole SSD chunks (512) and one that ends in
+# a padded chunk (300).
+RG_GROUPS = ((RG_T[0], 24), (RG_T[1], 8))
+MAMBA_GROUPS = ((512, 8), (300, 8))
+
+
+def _recurrent_params():
+    """Full-width random weights from seed 0 on the card: recurrentgemma-
+    2b fp32 and its int8 execution tree (embeddings, norms and the RG-LRU
+    mixer shared with the fp32 tree), and mamba2-2.7b fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.quant.int8 import quantize_exec_tree, \
+        tree_bytes_quantized
+    t0 = time.perf_counter()
+    rg32 = init_params(get_config("recurrentgemma_2b"), seed=0,
+                       device="cuda")
+    rg8 = quantize_exec_tree(rg32)
+    m32 = init_params(get_config("mamba2_2_7b"), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    gb = [tree_bytes_quantized(t) / 1e9 for t in (rg32, rg8, m32)]
+    log(f"params: recurrentgemma-2b fp32 {gb[0]:.3f} GB, int8 {gb[1]:.3f} "
+        f"GB; mamba2-2.7b fp32 {gb[2]:.3f} GB, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"recurrentgemma_fp32": rg32, "recurrentgemma_int8": rg8,
+            "mamba2_fp32": m32}
+
+
+def _arch(name):
+    return "mamba2_2_7b" if name.startswith("mamba2") else \
+        "recurrentgemma_2b"
+
+
+def _cfg(name, impl="cuda"):
+    from repro_torch.configs import get_config
+    return get_config(_arch(name), attn_impl=impl)
+
+
+def _served_groups(eng, groups, rng):
+    """The groups through the engine (graphs on the card): a prefill of
+    random prompts, then greedy decode steps. Returns (the logits of
+    every step, the tokens fed: per group the prompts, then each
+    step's (B, 1) tokens)."""
+    out, fed = [], []
+    for T, n in groups:
+        toks = [rng.integers(0, eng.cfg.vocab, (RG_B, T)).astype(np.int32)]
+        out.append(eng.run_prefill(toks[0]))
+        for _ in range(n):
+            toks.append(out[-1].argmax(-1).astype(np.int32)[:, None])
+            out.append(eng.run_decode(toks[-1]))
+        fed.append(toks)
+    return out, fed
+
+
+def _eager_groups(cfg, params, fed):
+    """The same tokens through `models.model` eagerly, a fresh cache a
+    group: the logits of every step."""
+    from repro_torch.models.model import decode_step, prefill
+    out = []
+    for toks in fed:
+        T = toks[0].shape[1]
+        lg, cache = prefill(params, torch.tensor(toks[0], device="cuda"),
+                            cfg, RG_MAX_SEQ, logits_last_only=True)
+        out.append(lg[:, 0].cpu().numpy())
+        for i, tok in enumerate(toks[1:]):
+            lg, _ = decode_step(params, torch.tensor(tok, device="cuda"),
+                                cache, T + i, cfg)
+            out.append(lg[:, 0].cpu().numpy())
+        del cache
+    return out
+
+
+def _bit_equal(label, got, want, stats):
+    unequal = [i for i, (g, w) in enumerate(zip(got, want))
+               if not np.array_equal(g, w)]
+    rel = max(float(np.abs(g - w).max() / np.abs(w).max())
+              for g, w in zip(got, want))
+    log(f"recurrent {label} graphs vs eager: {len(got)} steps, "
+        f"bit-identical at {len(got) - len(unequal)} (unequal: {unequal}), "
+        f"max |dlogit|/max|logit| = {rel:.3e}; captures="
+        f"{stats.graph_captures} replays={stats.graph_replays} "
+        f"compile_time_s={stats.compile_time_s:.3f}")
+    require(len(got) == len(want) and not unequal,
+            f"{label}: graph logits != eager logits")
+    require(all(np.isfinite(g).all() for g in got),
+            f"{label}: non-finite logits")
+
+
+def phase_recurrent(params):
+    """recurrentgemma-2b (fp32, int8) and mamba2-2.7b (fp32) at their
+    published size through the engine (max_seq RG_MAX_SEQ, batch RG_B):
+    the graphs against `models.model` run eagerly on a fresh cache, bit
+    for bit at every step; recurrentgemma's cuda path against its naive
+    path (int8: on the dequantized weights); mamba2's decode steps
+    against one forward over the whole sequence."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import forward
+    from repro_torch.serving.engine import InferenceEngine
+    rng = np.random.default_rng(3)
+    for name in ("recurrentgemma_fp32", "recurrentgemma_int8",
+                 "mamba2_fp32"):
+        p = params[name]
+        cfg = _cfg(name)
+        groups = MAMBA_GROUPS if name.startswith("mamba2") else RG_GROUPS
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            eng = InferenceEngine(cfg, p, batch_size=RG_B,
+                                  max_seq=RG_MAX_SEQ, device="cuda")
+            got, fed = _served_groups(eng, groups, rng)
+            if name.startswith("recurrent"):
+                # After the last group: its ring holds the window's last
+                # 2048 positions, wrapped.
+                pos = eng.cache["blocks"][2]["pos"]
+                last = RG_T[1] + groups[1][1] - 1
+                require(int(pos.max()) == last
+                        and int(pos.min()) == last - RG_WINDOW + 1,
+                        f"{name}: ring positions {int(pos.min())}.."
+                        f"{int(pos.max())}")
+            want = _eager_groups(cfg, p, fed)
+        _bit_equal(f"{name} ({_arch(name)} full width, groups {groups})",
+                   got, want, eng.stats)
+        del eng
+        torch.cuda.empty_cache()
+        if name.startswith("recurrent"):
+            naive_p = _dequantized(p) if name.endswith("int8") else p
+            before = ops.launch_counts()
+            with torch.no_grad():
+                naive = _eager_groups(_cfg(name, "naive"), naive_p, fed)
+            require(ops.launch_counts() == before,
+                    f"{name}: the naive run launched a kernel")
+            del naive_p
+            worst = max(float(np.abs(a - b).max() / np.abs(b).max())
+                        for a, b in zip(want, naive))
+            log(f"recurrent {name}: cuda vs naive"
+                f"{' (dequantized weights)' if name.endswith('int8') else ''}"
+                f" over {len(want)} steps: max |dlogit|/max|logit| = "
+                f"{worst:.3e} (tol {LOGIT_TOL}); max|logit|="
+                f"{max(float(np.abs(b).max()) for b in naive):.2f}")
+            require(worst <= LOGIT_TOL, f"{name}: cuda vs naive {worst:.2e}")
+        else:
+            # Each group's steps against one forward over its prompt and
+            # the tokens fed after it.
+            worst, at = 0.0, 0
+            for toks in fed:
+                seq = torch.tensor(np.concatenate(toks, axis=1),
+                                   device="cuda")
+                T = toks[0].shape[1]
+                with torch.no_grad():
+                    full = forward(p, seq, cfg)[0][:, T - 1:].cpu().numpy()
+                for i in range(len(toks)):
+                    b = full[:, i]
+                    worst = max(worst, float(np.abs(got[at + i] - b).max()
+                                             / np.abs(b).max()))
+                at += len(toks)
+                del seq, full
+            log(f"recurrent {name}: prefill + decode steps vs one forward "
+                f"over the sequence (T = {[g[0] for g in groups]}): max "
+                f"|dlogit|/max|logit| = {worst:.3e} (tol {LOGIT_TOL})")
+            require(worst <= LOGIT_TOL,
+                    f"{name}: decode vs forward {worst:.2e}")
+        torch.cuda.empty_cache()
+        log(f"recurrent {name}: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_serve_recurrent(params):
+    """The recurrent candidates behind CNNSelectServer: profiling, then
+    requests under cnnselect. Every kernel's launches by graph replays
+    on this path (the recurrentgemma engines; mamba2 launches none)
+    must be > 0. Returns the path's launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.batching import Request
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.server import CNNSelectServer, ServedModel
+    engines = {n: InferenceEngine(_cfg(n), p, batch_size=RG_B,
+                                  max_seq=RG_MAX_SEQ, device="cuda")
+               for n, p in params.items()}
+    # Offline task scores of the candidates (set here, as the launcher
+    # sets its tiers).
+    acc = {"recurrentgemma_fp32": 0.72, "recurrentgemma_int8": 0.71,
+           "mamba2_fp32": 0.70}
+    ops.reset_launch_counts()
+    t_start = time.perf_counter()
+    with torch.no_grad():
+        srv = CNNSelectServer(
+            [ServedModel(name=n, engine=e, accuracy=acc[n],
+                         size_bytes=e.resident_bytes)
+             for n, e in engines.items()],
+            t_threshold=30.0, policy="cnnselect", n_tokens=8)
+        srv.profile_models(prompt_len=T_SERVE, reps=3)
+        profs = srv.current_profiles()
+        for p in profs:
+            log(f"profile {p.name}: mu={p.mu:.2f} ms sigma={p.sigma:.2f} "
+                f"acc={p.accuracy} size={p.size_bytes}")
+        mus = sorted(p.mu for p in profs)
+        rng = np.random.default_rng(4)
+        V = min(e.cfg.vocab for e in engines.values())
+        for i in range(9):
+            # Budgets between the candidates' means and a generous one,
+            # so the selection has a real choice to make.
+            sla = [(mus[0] + mus[1]) / 2, (mus[1] + mus[2]) / 2,
+                   mus[2] * 3][i % 3] + 40.0
+            req = Request(arrival=0.0, rid=i,
+                          prompt=rng.integers(0, V, T_SERVE)
+                          .astype(np.int32),
+                          t_input_ms=float(rng.uniform(5.0, 15.0)))
+            rec = srv.handle(req, t_sla=sla)
+            require(len(rec["tokens"]) == 8 and rec["e2e_ms"] > 0,
+                    f"recurrent server request {i}")
+            log(f"recurrent server req {i}: sla={sla:.1f} {json.dumps(rec)}")
+        log(f"recurrent server summary: {json.dumps(srv.metrics.summary())}")
+    torch.cuda.synchronize()
+    for n, e in engines.items():
+        st = e.stats
+        log(f"serve engine {n}: graph captures {st.graph_captures}, "
+            f"replays {st.graph_replays}, compile_time_s "
+            f"{st.compile_time_s:.3f}, prefill {st.prefill_calls} calls "
+            f"{st.prefill_time_s:.3f} s, decode {st.decode_calls} calls "
+            f"{st.decode_time_s:.3f} s")
+        require(st.graph_replays == st.prefill_calls + st.decode_calls,
+                f"{n}: every prefill and decode a graph replay")
+    counts = dict(ops.launch_counts(),
+                  int8_matmul_prefill=ops.int8_prefill_launches())
+    replayed = ops.replayed_counts()
+    log(f"serve recurrent launches: {json.dumps(counts)} (of them graph "
+        f"replays: {json.dumps(replayed)}) in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    for name, n in counts.items():
+        require(replayed[name] > 0,
+                f"{name} launched by a graph replay on the recurrent path")
+    del engines, srv
+    torch.cuda.empty_cache()
+    return counts
+
+
+# --------------------------------------------------------------------------
 # Phase: profile (not in the default run)
 # --------------------------------------------------------------------------
 
@@ -1240,6 +1626,144 @@ def phase_profile(p32, p8):
         torch.cuda.empty_cache()
 
 
+# The plain-torch functions of the recurrent mixers whose device time the
+# recurrent profile reads (through torch.profiler ranges around them).
+MIXER_FNS = {"rglru": ("rglru_scan", "rglru_step", "causal_conv1d"),
+             "ssd": ("ssd_chunked", "ssd_step", "causal_conv1d")}
+
+
+@contextlib.contextmanager
+def _mixer_ranges():
+    """Wrap each MIXER_FNS function, where its block looks it up, in a
+    torch.profiler range named "<module>.<function>"."""
+    from repro_torch.models import rglru, ssd
+    saved = []
+    for mod in (rglru, ssd):
+        short = mod.__name__.rsplit(".", 1)[1]
+        for name in MIXER_FNS[short]:
+            fn = getattr(mod, name)
+
+            def ranged(*a, _fn=fn, _label=f"{short}.{name}", **kw):
+                with torch.profiler.record_function(_label):
+                    return _fn(*a, **kw)
+            saved.append((mod, name, fn))
+            setattr(mod, name, ranged)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _mixer_ms(fn, steps):
+    """Device ms a call of fn of the kernels launched inside the mixer
+    ranges, and of all kernels, under torch.profiler (eager calls: a
+    range owns the kernels its operators launched)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    labels = {f"{m}.{n}" for m, names in MIXER_FNS.items() for n in names}
+    torch.cuda.synchronize()
+    with _mixer_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    ranges = {e.key: e.device_time_total / 1e3 / steps for e in ev
+              if e.key in labels and e.device_type == DeviceType.CPU}
+    kernels = sum(e.self_device_time_total for e in ev
+                  if e.device_type == DeviceType.CUDA
+                  and e.key not in labels) / 1e3 / steps
+    return ranges, kernels
+
+
+RPROFILE_STEPS = 16
+
+
+def phase_profile_recurrent(params):
+    """Where the time of a full-width decode step and prefill (B = RG_B,
+    prompt RG_T[0]) of each recurrent candidate goes, through the
+    engine's graphs and through `models.model` called eagerly: wall and
+    device timeline (CUDA events), then torch.profiler's device kernel
+    time, launches and idle share, the shares of decode_attention,
+    flash_attention and int8_matmul, and (eager calls, profiler ranges)
+    the device time of the plain-torch RG-LRU and SSD functions."""
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.serving.engine import InferenceEngine
+    rng = np.random.default_rng(5)
+    T = RG_T[0]
+    kernels = ("decode_attention", "flash_attention", "int8_matmul")
+    for name, p in params.items():
+        cfg = _cfg(name)
+        eng = InferenceEngine(cfg, p, batch_size=RG_B, max_seq=RG_MAX_SEQ,
+                              device="cuda")
+        prompts = rng.integers(0, cfg.vocab, (RG_B, T)).astype(np.int32)
+        toks = torch.tensor(prompts, device="cuda")
+
+        def graph_group():
+            nxt = eng.run_prefill(prompts).argmax(-1).astype(np.int32)
+            return lambda: eng.run_decode(nxt[:, None])
+
+        def eager_group():
+            lg, cache = prefill(p, toks, cfg, RG_MAX_SEQ,
+                                logits_last_only=True)
+            nxt = lg[:, 0].cpu().numpy().argmax(-1).astype(np.int32)[:, None]
+            pos = itertools.count(T)
+
+            def step():
+                lg, _ = decode_step(p, torch.tensor(nxt, device="cuda"),
+                                    cache, next(pos), cfg)
+                return lg[:, 0].cpu().numpy()
+            return step
+        prefills = {
+            "graph": lambda: eng.run_prefill(prompts),
+            "eager": lambda: prefill(p, toks, cfg, RG_MAX_SEQ,
+                                     logits_last_only=True)[0][:, 0]
+            .cpu().numpy()}
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            eng.warmup(T)
+            log(f"rprofile {name} warm-up and capture at T={T}: "
+                f"{time.perf_counter() - t0:.3f} s")
+            for mode, group in (("graph", graph_group),
+                                ("eager", eager_group)):
+                wall, span = _timed(group(), RPROFILE_STEPS)
+                log(f"rprofile {name} decode {mode} B={RG_B} context {T}-"
+                    f"{T + RPROFILE_STEPS - 1}: wall {wall:.4f} ms/step, "
+                    f"device timeline {span:.4f} ms/step")
+                wall, dev, n_k, ev = _profiled(group(), 8)
+                log(f"rprofile {name} decode step {mode} (profiler): wall "
+                    f"{wall:.3f} ms, device kernels {dev:.3f} ms ({n_k:.0f} "
+                    f"launches), "
+                    + ", ".join("%s %.3f ms (%.0f launches)"
+                                % (k, *_share(ev, k, 8)) for k in kernels)
+                    + f", device idle share {1 - dev / wall:.3f}")
+                _log_top(f"{name} decode {mode}", ev, 8, 6)
+            for mode, fn in prefills.items():
+                fn()
+                wall, span = _timed(fn, 3)
+                log(f"rprofile {name} prefill {mode} B={RG_B} T={T}: wall "
+                    f"{wall:.4f} ms, device timeline {span:.4f} ms (3 calls)")
+                wall, dev, n_k, ev = _profiled(fn, 2)
+                log(f"rprofile {name} prefill {mode} (profiler): wall "
+                    f"{wall:.3f} ms, device kernels {dev:.3f} ms ({n_k:.0f} "
+                    f"launches), "
+                    + ", ".join("%s %.3f ms (%.0f launches)"
+                                % (k, *_share(ev, k, 2)) for k in kernels)
+                    + f", device idle share {1 - dev / wall:.3f}")
+                _log_top(f"{name} prefill {mode}", ev, 2, 6)
+            ranges, dev = _mixer_ms(eager_group(), 8)
+            log(f"rprofile {name} decode step eager, plain-torch mixer "
+                f"functions: {json.dumps(ranges)} ms/step of {dev:.3f} ms "
+                f"device kernels")
+            ranges, dev = _mixer_ms(prefills["eager"], 2)
+            log(f"rprofile {name} prefill eager T={T}, plain-torch mixer "
+                f"functions: {json.dumps(ranges)} ms/call of {dev:.3f} ms "
+                f"device kernels")
+        del eng
+        torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------------
 # Phase: tune (not in the default run)
 # --------------------------------------------------------------------------
@@ -1328,7 +1852,7 @@ def main(argv=None):
         phase_kernels(results)
     if "tune" in phases:
         phase_tune()
-    counts = None
+    counts = rcounts = None
     if {"model", "serve", "profile"} & set(phases):
         p32, p8 = _build_params()
         if "model" in phases:
@@ -1337,6 +1861,17 @@ def main(argv=None):
             counts = phase_serve(p32, p8)
         if "profile" in phases:
             phase_profile(p32, p8)
+        del p32, p8
+        torch.cuda.empty_cache()
+    if {"recurrent", "profile_recurrent"} & set(phases):
+        rparams = _recurrent_params()
+        if "recurrent" in phases:
+            phase_recurrent(rparams)
+            rcounts = phase_serve_recurrent(rparams)
+        if "profile_recurrent" in phases:
+            phase_profile_recurrent(rparams)
+        del rparams
+        torch.cuda.empty_cache()
     log(f"card: {card}; wall {time.perf_counter() - t0:.1f} s")
     if results:
         kernels = []
@@ -1348,13 +1883,17 @@ def main(argv=None):
                 launches=None if counts is None else counts[name],
                 **({} if counts is None or name != "int8_matmul" else
                    {"prefill_launches": counts["int8_matmul_prefill"]}),
+                # The recurrent path's own run (recurrentgemma-2b and
+                # mamba2-2.7b behind CNNSelectServer).
+                launches_recurrent=None if rcounts is None
+                else rcounts[name],
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
                 pins=r["pins"],
                 **{k: r[k] for k in ("bound_fp32_cores_ms", "cold_ms",
                                      "library_cold_ms", "plan", "small_m",
-                                     "prefill", "rows")
+                                     "prefill", "recurrentgemma", "rows")
                    if k in r},
                 shape=r["shape"]))
         print(json.dumps({"kernels": kernels}), flush=True)

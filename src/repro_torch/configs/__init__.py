@@ -2,9 +2,12 @@
 exact published hyper-parameters; `reduced_config(name)` scales a family
 down for CPU tests (same block pattern, tiny dims).
 
-Only the attention-only stablelm family runs on this package so far;
-the other architectures need the chunked-attention, MoE, SSD and
-RG-LRU modules and are named here so `get_config` can say so."""
+The attention-only stablelm family and the two recurrent families
+(recurrentgemma: RG-LRU + local attention; mamba2: SSD) run on this
+package so far; the other architectures need the MoE module (qwen3,
+grok) or have not been held against the reference yet (musicgen,
+gemma2, yi, deepseek, chameleon), and are named here so `get_config`
+can say so."""
 
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ ARCH_IDS = [
 ]
 
 # Architectures whose modules are ported.
-PORTED = ("stablelm_1_6b",)
+PORTED = ("stablelm_1_6b", "recurrentgemma_2b", "mamba2_2_7b")
 
 # Canonical external ids (assignment spelling) -> module names.
 ALIASES = {
@@ -53,9 +56,9 @@ def get_config(name: str, **runtime):
     name = resolve(name)
     if name not in PORTED:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet: it needs the chunked "
-            f"attention / MoE / SSD / RG-LRU / ring-window modules of a "
-            f"later slice of the port (ported: {', '.join(PORTED)})")
+            f"arch {name!r} is not ported yet: it needs the MoE module "
+            f"or a model-level check of a later slice of the port "
+            f"(ported: {', '.join(PORTED)})")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     cfg = mod.make_config()
     return cfg.with_runtime(**runtime) if runtime else cfg
@@ -63,6 +66,7 @@ def get_config(name: str, **runtime):
 
 def reduced_config(name: str, **runtime):
     """Tiny same-family config for CPU tests."""
+    from repro_torch.models.config import RGLRUConfig, SSDConfig
     cfg = get_config(name)
     pat = len(cfg.pattern)
     n_layers = pat * 2 + (1 if cfg.n_layers % pat else 0)  # 2 groups (+tail)
@@ -78,5 +82,10 @@ def reduced_config(name: str, **runtime):
         tp_pad_heads=0,
         attn_chunk=16,
     )
+    if cfg.ssd:
+        kw["ssd"] = SSDConfig(d_state=16, head_dim=8, n_groups=1,
+                              conv_width=4, expand=2, chunk=16)
+    if cfg.rglru:
+        kw["rglru"] = RGLRUConfig(lru_width=64, conv_width=4)
     cfg = dataclasses.replace(cfg, **kw)
     return cfg.with_runtime(**runtime) if runtime else cfg

@@ -1,4 +1,5 @@
-"""Decoder LM for attention-only block patterns, on torch tensors.
+"""Decoder LM for attention-only and recurrent (RG-LRU, SSD) block
+patterns, on torch tensors.
 
 A model is `n_layers` blocks produced by cycling `cfg.pattern`; layers
 are grouped as in the reference (one group = one pass through the
@@ -12,6 +13,9 @@ Entry points:
   decode_step(params, token, cache, cache_pos, cfg) -> (logits, cache)
 
 Caches are updated in place: `forward` returns the cache it was given.
+Attention layers write their k/v/pos buffers, recurrent layers copy
+their new state (RG-LRU `h`, SSD `S`, the convolutions' last inputs)
+into theirs, so a captured step reads and writes fixed buffers.
 """
 
 from __future__ import annotations
@@ -23,19 +27,22 @@ import torch
 from repro_torch.models import params as pmod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import attn_block, rms_norm, softcap
+from repro_torch.models.rglru import rglru_block
+from repro_torch.models.ssd import ssd_block
 from repro_torch.utils import dtype_of, resolve_device
 
 init_params = pmod.init_params
 
-_NOT_PORTED = ("moe", "rglru", "ssd")
+_NOT_PORTED = ("moe",)
+RECURRENT_KINDS = ("rglru", "ssd")
 
 
 def _check_kinds(cfg: ModelConfig):
     bad = sorted(set(cfg.pattern) & set(_NOT_PORTED))
     if bad:
         raise NotImplementedError(
-            f"block kinds {bad} are not ported yet (MoE / RG-LRU / SSD "
-            f"belong to a later slice of the port)")
+            f"block kinds {bad} are not ported yet (MoE belongs to a "
+            f"later slice of the port)")
 
 
 # --------------------------------------------------------------------------
@@ -44,20 +51,37 @@ def _check_kinds(cfg: ModelConfig):
 
 def _block_cache(cfg: ModelConfig, kind: str, B: int, max_seq: int,
                  lead: tuple, device):
+    dt = dtype_of(cfg.compute_dtype)
+    f32 = torch.float32
+
+    def zeros(shape, dtype):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+    if kind == "rglru":
+        W, K = cfg.lru_width, cfg.rglru.conv_width
+        return {"h": zeros((B, W), f32), "conv": zeros((B, K - 1, W), dt)}
+    if kind == "ssd":
+        s = cfg.ssd
+        nh, N, P = cfg.ssd_heads, s.d_state, s.head_dim
+        di, gn, K = cfg.d_inner_ssd, s.n_groups * s.d_state, s.conv_width
+        return {"S": zeros((B, nh, N, P), f32),
+                "conv": {"x": zeros((B, K - 1, di), dt),
+                         "B": zeros((B, K - 1, gn), dt),
+                         "C": zeros((B, K - 1, gn), dt)}}
     S = min(cfg.window, max_seq) if kind == "local" and cfg.window \
         else max_seq
     KV, hd = cfg.n_kv_heads, cfg.head_dim
-    dt = dtype_of(cfg.compute_dtype)
     return {
-        "k": torch.zeros(lead + (B, S, KV, hd), dtype=dt, device=device),
-        "v": torch.zeros(lead + (B, S, KV, hd), dtype=dt, device=device),
+        "k": zeros((B, S, KV, hd), dt),
+        "v": zeros((B, S, KV, hd), dt),
         "pos": torch.full(lead + (S,), -1, dtype=torch.int32, device=device),
     }
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
-    """{"blocks": (stacked per pattern kind,), "tail": (...,)} of k/v
-    buffers (zeros) and stored positions (-1 = unwritten)."""
+    """{"blocks": (stacked per pattern kind,), "tail": (...,)}: attention
+    layers' k/v buffers (zeros) and stored positions (-1 = unwritten);
+    recurrent layers' state (RG-LRU h, SSD S: fp32) and convolution
+    inputs (compute dtype), zeros."""
     _check_kinds(cfg)
     device = resolve_device(device)
     G = cfg.n_groups_scan
@@ -80,6 +104,25 @@ def _index(tree, g: int):
     return tree[g]
 
 
+def _apply_block(kind: str, p, x, cfg: ModelConfig, positions, cache,
+                 cache_pos, valid_from):
+    if kind in RECURRENT_KINDS:
+        if valid_from is not None:
+            # Recurrent state integrates every input step sequentially: a
+            # left-padded prompt contaminates h/S/conv in a way no
+            # attention mask can undo. Callers must feed unpadded
+            # sequences instead.
+            raise NotImplementedError(
+                f"valid_from masking cannot be applied to recurrent blocks "
+                f"({kind}); feed unpadded sequences")
+        block = rglru_block if kind == "rglru" else ssd_block
+        x, _ = block(p, x, cfg, cache)
+        return x
+    x, _ = attn_block(p, x, cfg, kind, positions, cache, cache_pos,
+                      valid_from)
+    return x
+
+
 def forward(params, inputs, cfg: ModelConfig, *, cache=None,
             cache_pos=None, positions=None,
             logits_last_only: bool = False, valid_from=None):
@@ -90,7 +133,8 @@ def forward(params, inputs, cfg: ModelConfig, *, cache=None,
     prefill — avoids materializing the (B,S,V) logits tensor).
     cache_pos: the decode step's position, the 0-d int32 tensor on the
     device that `decode_step` builds (default 0, as in the reference).
-    valid_from: optional (B,) int32 per-row first attendable position.
+    valid_from: optional (B,) int32 per-row first attendable position
+    (attention-only patterns; recurrent blocks raise).
     Returns (logits, {"cache": cache})."""
     _check_kinds(cfg)
     compute_dtype = dtype_of(cfg.compute_dtype)
@@ -99,8 +143,11 @@ def forward(params, inputs, cfg: ModelConfig, *, cache=None,
     else:
         x = params["embed"][inputs.long()].to(compute_dtype)
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype,
-                         device=x.device)
+        # A fill on the device (a host tensor would be a copy, which a
+        # graph capture refuses), rounded to the compute dtype first as
+        # in the reference.
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=compute_dtype,
+                           device=x.device)
     T = x.shape[1]
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32, device=x.device)
@@ -110,12 +157,12 @@ def forward(params, inputs, cfg: ModelConfig, *, cache=None,
     for g in range(cfg.n_groups_scan):
         for i, kind in enumerate(cfg.pattern):
             c = None if cache is None else _index(cache["blocks"][i], g)
-            x, _ = attn_block(_index(params["blocks"][i], g), x, cfg, kind,
-                              positions, c, cache_pos, valid_from)
+            x = _apply_block(kind, _index(params["blocks"][i], g), x, cfg,
+                             positions, c, cache_pos, valid_from)
     for i, kind in enumerate(cfg.tail_kinds):
         c = None if cache is None else cache["tail"][i]
-        x, _ = attn_block(params["tail"][i], x, cfg, kind, positions, c,
-                          cache_pos, valid_from)
+        x = _apply_block(kind, params["tail"][i], x, cfg, positions, c,
+                         cache_pos, valid_from)
 
     if logits_last_only:
         x = x[:, -1:]
@@ -164,14 +211,19 @@ def prefill(params, inputs, cfg: ModelConfig, max_seq: int, *,
     cache reads of later decode steps.
     cache: optional (B, max_seq) cache from `init_cache` to prefill in
     place (the serving engine's persistent cache): every stored position
-    goes back to -1 (unwritten) first, so it gives the bits of a fresh
-    cache. None: a fresh cache is allocated."""
+    goes back to -1 (unwritten) and every recurrent state to zeros
+    first, so it gives the bits of a fresh cache. None: a fresh cache is
+    allocated."""
     B, T = inputs.shape[0], inputs.shape[1]
     if cache is None:
         cache = init_cache(cfg, B, max_seq, device=inputs.device)
     else:
         for c in cache["blocks"] + cache["tail"]:
-            c["pos"].fill_(-1)
+            if "pos" in c:
+                c["pos"].fill_(-1)
+            else:
+                for leaf in pmod.tree_leaves(c):
+                    leaf.zero_()
     logits, extras = forward(
         params, inputs, cfg, cache=cache,
         positions=torch.arange(T, dtype=torch.int32, device=inputs.device),

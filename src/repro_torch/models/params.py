@@ -1,4 +1,4 @@
-"""Parameter trees of the attention-only models.
+"""Parameter trees of the attention-only and recurrent models.
 
 The tree has the reference's structure — {"embed", "final_norm",
 "lm_head", "blocks": (stacked dict per pattern kind,), "tail": (dict,)}
@@ -24,26 +24,58 @@ from repro_torch.utils import dtype_of, resolve_device
 
 def block_tree(cfg: ModelConfig, kind: str, mk):
     """One block's parameter tree via the mk(shape, init) callback."""
-    if kind not in ("attn", "global", "local"):
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: MoE, SSD and RG-LRU "
-            f"blocks belong to a later slice of the port")
     d = cfg.d_model
-    Hq, KV, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim
-    p = {"ln1": mk((d,), "zeros"),
-         "wq": mk((d, Hq, hd), "fan_in"),
-         "wk": mk((d, KV, hd), "fan_in"),
-         "wv": mk((d, KV, hd), "fan_in"),
-         "wo": mk((Hq, hd, d), "fan_io")}
-    if cfg.qk_norm:
-        p["q_norm"] = mk((hd,), "zeros")
-        p["k_norm"] = mk((hd,), "zeros")
-    if cfg.sandwich_norm:
-        p["post_attn_norm"] = mk((d,), "zeros")
-        p["post_ffn_norm"] = mk((d,), "zeros")
-    p["ln2"] = mk((d,), "zeros")
-    p["mlp"] = _mlp_tree(cfg, mk)
-    return p
+    if kind in ("attn", "global", "local"):
+        Hq, KV, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim
+        p = {"ln1": mk((d,), "zeros"),
+             "wq": mk((d, Hq, hd), "fan_in"),
+             "wk": mk((d, KV, hd), "fan_in"),
+             "wv": mk((d, KV, hd), "fan_in"),
+             "wo": mk((Hq, hd, d), "fan_io")}
+        if cfg.qk_norm:
+            p["q_norm"] = mk((hd,), "zeros")
+            p["k_norm"] = mk((hd,), "zeros")
+        if cfg.sandwich_norm:
+            p["post_attn_norm"] = mk((d,), "zeros")
+            p["post_ffn_norm"] = mk((d,), "zeros")
+        p["ln2"] = mk((d,), "zeros")
+        p["mlp"] = _mlp_tree(cfg, mk)
+        return p
+    if kind == "rglru":
+        w, K = cfg.lru_width, cfg.rglru.conv_width
+        return {"ln1": mk((d,), "zeros"),
+                "w_gate_branch": mk((d, w), "fan_in"),
+                "w_in": mk((d, w), "fan_in"),
+                "conv_w": mk((w, K), "conv"),
+                "w_a": mk((w, w), "fan_in"),
+                "w_x": mk((w, w), "fan_in"),
+                "b_a": mk((w,), "zeros"),
+                "b_x": mk((w,), "zeros"),
+                "lam": mk((w,), "lambda"),
+                "w_out": mk((w, d), "fan_in"),
+                "ln2": mk((d,), "zeros"),
+                "mlp": _mlp_tree(cfg, mk)}
+    if kind == "ssd":
+        s = cfg.ssd
+        di, nh = cfg.d_inner_ssd, cfg.ssd_heads
+        gn, K = s.n_groups * s.d_state, s.conv_width
+        return {"ln1": mk((d,), "zeros"),
+                "w_z": mk((d, di), "fan_in"),
+                "w_x": mk((d, di), "fan_in"),
+                "w_B": mk((d, gn), "fan_in"),
+                "w_C": mk((d, gn), "fan_in"),
+                "w_dt": mk((d, nh), "fan_in"),
+                "conv_x": mk((di, K), "conv"),
+                "conv_B": mk((gn, K), "conv"),
+                "conv_C": mk((gn, K), "conv"),
+                "A_log": mk((nh,), "a_log"),
+                "dt_bias": mk((nh,), "dt_bias"),
+                "D": mk((nh,), "ones"),
+                "norm_w": mk((di,), "ones"),
+                "w_out": mk((di, d), "fan_in")}
+    raise NotImplementedError(
+        f"block kind {kind!r} is not ported yet: MoE blocks belong to a "
+        f"later slice of the port")
 
 
 def _mlp_tree(cfg: ModelConfig, mk):
@@ -90,20 +122,41 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     return model_tree(cfg, mk, mk_stacked)
 
 
+def _uniform(gen, shape, lo, hi, device):
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return lo + (hi - lo) * u
+
+
 def _draw(gen, shape, init, dtype, device, stacked: bool = False):
     """One leaf. fan_in scales by 1/sqrt(the layer's first axis), fan_io
     by 1/sqrt(the product of its first two). The reference takes a
     stacked leaf's fan from the stacked shape (the group count); here it
     comes from the layer's own input width, which keeps full-width
-    activations at unit scale."""
+    activations at unit scale. The recurrent inits follow the
+    reference's ranges: RG-LRU's Lambda puts a = exp(-8 softplus(lam))
+    in [0.9, 0.999], mamba2's A = exp(A_log) in [1, 16) and
+    softplus(dt_bias) in [1e-3, 1e-1]; conv taps scale by
+    1/sqrt(the conv width)."""
     if init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
+    if init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if init == "lambda":
+        sp = -torch.log(_uniform(gen, shape, 0.9, 0.999, device)) / 8.0
+        return torch.log(torch.expm1(torch.clamp(sp, min=1e-8))).to(dtype)
+    if init == "a_log":
+        return torch.log(_uniform(gen, shape, 1.0, 16.0, device)).to(dtype)
+    if init == "dt_bias":
+        u = _uniform(gen, shape, 1e-3, 1e-1, device)
+        return torch.log(torch.expm1(u)).to(dtype)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     lead = shape[1:] if stacked else shape
     if init == "fan_in":
         x /= math.sqrt(lead[0])
     elif init == "fan_io":
         x /= math.sqrt(lead[0] * lead[1])
+    elif init == "conv":
+        x /= math.sqrt(shape[-1])
     # "embed": unit normal.
     return x.to(dtype)
 

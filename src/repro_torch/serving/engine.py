@@ -5,11 +5,13 @@ batching loop. Decode steps are *aligned* within a batch group; the
 scheduler (batching.py) regroups requests between steps and backfills
 freed slots via `prefill_row` mid-group.
 
-The engine allocates its (batch_size, max_seq) KV cache once, and every
-step writes into it in place (the reference donates its cache to the
-jit'd decode). The steps read static input tensors: the prompt tokens
-(one tensor per prompt length), the decode tokens, `valid_from` (B,),
-and the decode position, a 0-d int32 on the device that the engine
+The engine allocates its (batch_size, max_seq) cache once (attention
+layers' KV buffers, recurrent layers' state), and every step writes
+into it in place (the reference donates its cache to the jit'd
+decode). The steps read static input tensors: the prompt tokens (one
+tensor per prompt length), the decode tokens, `valid_from` (B,) (on
+attention-only patterns; recurrent ones take none), and the decode
+position, a 0-d int32 on the device that the engine
 sets before each decode from its Python `cache_pos`. On the card the
 reference's jit'd steps become CUDA graphs over those tensors: `warmup`
 runs each step once eagerly before its capture (kernel builds, launch
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN_KINDS, ModelConfig
 from repro_torch.models.model import (decode_step, forward, init_cache,
                                       prefill)
 from repro_torch.models.params import tree_leaves
@@ -84,8 +86,8 @@ class InferenceEngine:
                     f"params live on {leaf.device}, engine device is "
                     f"{self.device}; move them first (no implicit copy)")
         self.stats = EngineStats()
-        # Every ported block kind keeps an attention cache, so per-row
-        # masking (left-padded prompts, slot backfill) always applies.
+        # Attention layers keep a KV cache, recurrent layers (RG-LRU,
+        # SSD) a fixed-size state; both live here for the engine's life.
         self.cache = init_cache(cfg, batch_size, max_seq, device=self.device)
         self.cache_pos = 0       # tokens in context; 0: no group prefilled
         # The steps' static inputs.
@@ -100,9 +102,13 @@ class InferenceEngine:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
         kinds = set(cfg.pattern) | set(cfg.tail_kinds)
-        # Slot backfill needs every layer's cache to span max_seq (a
-        # windowed ring smaller than max_seq wraps slots).
-        self._backfillable = not (
+        # Per-row masking (left-padded prompts / slot backfill) only works
+        # on attention caches; recurrent state integrates pads irrevocably.
+        # Recurrent patterns' steps take valid_from=None.
+        self._maskable = kinds <= set(ATTN_KINDS)
+        # Slot backfill additionally needs every layer's cache to span
+        # max_seq (a windowed ring smaller than max_seq wraps slots).
+        self._backfillable = self._maskable and not (
             "local" in kinds and cfg.window and cfg.window < max_seq)
 
     # -- step functions (the reference's jit entry points) -------------
@@ -164,11 +170,11 @@ class InferenceEngine:
     def _step(self, key):
         """The step a graph key names, over its static inputs: "decode",
         or the prefill at a prompt length."""
+        vf = self.valid_from if self._maskable else None
         if key == "decode":
-            return lambda: self._decode(self._token, self._pos,
-                                        self.valid_from)
+            return lambda: self._decode(self._token, self._pos, vf)
         prompt = self._prompt(key)
-        return lambda: self._prefill(prompt, self.valid_from)
+        return lambda: self._prefill(prompt, vf)
 
     @contextlib.contextmanager
     def _on_capture_stream(self):
@@ -223,7 +229,8 @@ class InferenceEngine:
         model-load phase): runs each step that has no graph yet once
         eagerly (prefill at prompt_len, decode), which builds the
         kernels on first use, and the backfill pair on the engine's
-        first warm-up; on the card it then captures those steps. Leaves
+        first warm-up where it can backfill; on the card it then
+        captures those steps. Leaves
         no group in the cache. Returns seconds."""
         self._sync()
         t0 = time.perf_counter()
@@ -252,10 +259,15 @@ class InferenceEngine:
         return dt
 
     def _valid_from_for(self, tokens, lengths):
-        """(B,) first attendable absolute position per row (numpy)."""
+        """(B,) first attendable absolute position per row (numpy), or
+        None for a recurrent pattern, which takes no mask."""
         B, T = tokens.shape
         if lengths is None:
-            return np.zeros(B, np.int32)
+            return np.zeros(B, np.int32) if self._maskable else None
+        if not self._maskable:
+            raise NotImplementedError(
+                f"padded prompts need per-row masking, which recurrent "
+                f"blocks in pattern {self.cfg.pattern} do not support")
         lengths = np.asarray(lengths, np.int64)
         if lengths.shape != (B,) or np.any(lengths < 1) or np.any(lengths > T):
             raise ValueError(f"lengths must be (B,) in [1, {T}]")
@@ -278,7 +290,8 @@ class InferenceEngine:
         self._sync()
         t0 = time.perf_counter()
         self._prompt(T).copy_(self._host(tokens))
-        self.valid_from.copy_(self._host(vf))
+        if vf is not None:
+            self.valid_from.copy_(self._host(vf))
         logits = self._run(T)
         out = logits[:, 0].cpu().numpy()
         self.stats.prefill_calls += 1

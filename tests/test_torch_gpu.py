@@ -654,3 +654,53 @@ def test_int8_small_m_plan_fills_the_card(cuda, K, N):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert p["tiles"] <= p["resident_clusters"]
     assert p["tiles"] * p["splits"] >= min(sms, p["tiles"] * 8)
+
+
+# -- recurrentgemma-2b's shapes (src/repro/configs/recurrentgemma_2b.py):
+# its local layers run 16 q heads (tp_pad_heads) on 1 kv head at hd 256,
+# window 2048, softcap 0, no valid_from (a recurrent pattern takes none);
+# decode reads a 2048-slot ring (linear=False); d_model 2560, d_ff 7680.
+
+def _ring_pos(S, cpos):
+    """Stored positions of an S-slot ring at cache_pos cpos: slot s holds
+    the latest position p <= cpos with p % S == s (-1 if none yet)."""
+    s = torch.arange(S, device="cuda")
+    pos = cpos - (cpos - s) % S
+    return torch.where(pos >= 0, pos, -1).to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [300, 2040, 2560])
+def test_flash_attention_recurrentgemma_heads(cuda, T, dtype):
+    q = _randn(cuda, (2, T, 16, 256), dtype)
+    k = _randn(cuda, (2, T, 1, 256), dtype)
+    v = _randn(cuda, (2, T, 1, 256), dtype)
+    out = ops.flash_attention_btHd(q, k, v, window=2048)
+    want = R.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2),
+                                 window=2048).transpose(1, 2)
+    torch.cuda.synchronize()
+    _assert_close(out, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cpos", [1000, 2047, 2048, 2063, 2567])
+def test_decode_attention_recurrentgemma_ring(cuda, cpos, dtype):
+    """The local layers' 2048-slot ring, before and across its wrap."""
+    q, k, v, _ = _decode_case(cuda, 2, 2048, 16, 1, 256, 0, dtype)
+    _decode_check(q, k, v, _ring_pos(2048, cpos), cpos, None, dtype,
+                  ring=True, window=2048)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K, N", [(2560, 7680), (7680, 2560), (2560, 4096),
+                                  (2560, 256), (4096, 2560)])
+@pytest.mark.parametrize("M", [4, 2040])
+def test_int8_matmul_recurrentgemma_shapes(cuda, M, K, N, dtype):
+    """Every int8 projection of recurrentgemma-2b (w_up / w_gate, w_down
+    at K = 7680, wq, wk / wv, wo) at a decode M and a prefill M."""
+    x, wq, sc = _int8_case(cuda, M, K, N, dtype)
+    out = ops.int8_matmul(x, wq, sc)
+    want = R.int8_matmul_ref(x, wq, sc)
+    torch.cuda.synchronize()
+    _assert_int8_close(out, want, dtype)

@@ -194,7 +194,7 @@ def test_unported_kinds_raise():
     _, tcfg = _cfgs("lm_tiny")
     with pytest.raises(NotImplementedError, match="later slice"):
         from repro_torch.models import init_cache
-        init_cache(dataclasses.replace(tcfg, pattern=("ssd",)), 1, 8,
+        init_cache(dataclasses.replace(tcfg, pattern=("moe",)), 1, 8,
                    device="cpu")
     big = dataclasses.replace(tcfg, attn_impl="auto")
     q = torch.zeros(1, 4097, 4, 16)

@@ -16,12 +16,14 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
-# Reference modules the port copies verbatim, up to the import rename.
+# Reference modules the port copies verbatim, up to the import rename
+# (the numpy-only modules and the ported architectures' configs).
 COPIED = ["core/registry.py", "core/selection.py", "core/profiles.py",
           "core/zoo.py", "configs/paper_zoo.py", "serving/batching.py",
           "serving/metrics.py", "serving/network.py", "serving/fleet.py",
           "serving/control.py", "serving/router.py", "serving/stack.py",
-          "serving/server.py", "serving/loop.py"]
+          "serving/server.py", "serving/loop.py", "configs/stablelm_1_6b.py",
+          "configs/recurrentgemma_2b.py", "configs/mamba2_2_7b.py"]
 # ... except these, which the port rewrites in torch (selection.py).
 REWRITTEN = {"cnnselect_batch", "_BATCH_JIT", "_jit_cnnselect_batch",
              "CNNSelectPolicy.select_batch", "CNNSelectPolicy.__doc__"}
