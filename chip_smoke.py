@@ -16,9 +16,15 @@ Phases (each prints its results, one line each):
            at those of qwen3_moe_235b and unpadded recurrentgemma_2b
            too; flash and decode also at recurrentgemma-2b's model
            shapes: prefill at T = 2040 and 2560 with window 2048, its
-           2048-slot ring wrapped; int8 at the decode M and the serve
-           and model phases' prefill M, for stablelm's and
-           recurrentgemma's projections), the bit-exact pins (flash and decode at each heads and
+           2048-slot ring wrapped; and at the dense models' (deepseek-
+           coder-33b's 64/8/128 heads everywhere the other heads go;
+           gemma2-9b's local layers at T = 4200, window 4096, softcap
+           50, its ring wrapped, its global layers at S = 8192; yi-9b,
+           deepseek-coder-33b, chameleon-34b and musicgen-large as
+           their runs give them); int8 at the decode M and the serve
+           and model phases' prefill M, for stablelm's, recurrentgemma's
+           and the dense int8 candidates' projections, up to K = 22016),
+           the bit-exact pins (flash and decode at each heads and
            dtype: valid_from = 0 gives the bits of None, two calls give
            the same bits; decode: the linear skip gives those of the full
            scan; int8: two calls), and each kernel's time beside its
@@ -53,6 +59,23 @@ Phases (each prints its results, one line each):
            mamba2's steps against one forward over the sequence; then
            the recurrent path: CNNSelectServer over the three
            candidates, whose graph replays must launch every kernel
+  dense    the five attention-only architectures at published width and
+           depth, batch 4, one model at a time (each one's peak memory
+           printed, at most 75 GB): gemma2-9b fp32 and int8 through the
+           engine at max_seq 8192 (a group at T = 4200, past its 4096
+           window, and 24 steps, then T = 1024 and 8 steps; the engine
+           refuses backfill there), yi-9b fp32 and deepseek-coder-33b
+           int8 on the model phase's schedule at max_seq 1024: graphs
+           against models.model eagerly on a fresh cache, bit for bit
+           at every step; the cuda path against the naive path (gemma2
+           at B = 1, int8 on the dequantized weights; deepseek on the
+           same int8 tree); musicgen-large fp32 and chameleon-34b int8
+           model-level with embeddings in: a prefill at T = 512 and 16
+           teacher-forced steps against one forward and cuda against
+           naive. The 34 B int8 trees are built one scan group at a time
+           (tree_by_group). Then the dense path: CNNSelectServer over
+           gemma2-9b int8 and yi-9b int8, whose graph replays must
+           launch every kernel
   profile  (only when asked for) where the time of a full-width decode
            step and of a full-width prefill (T = 64 and 512) goes,
            through the engine's graphs and through models.model called
@@ -65,11 +88,16 @@ Phases (each prints its results, one line each):
            (only when asked for) the same for each recurrent candidate
            (B = 4, prompt 2040), with the device time of the
            plain-torch RG-LRU and SSD functions (profiler ranges)
+  profile_dense
+           (only when asked for) the same for each dense engine
+           candidate (gemma2-9b fp32 and int8, yi-9b fp32,
+           deepseek-coder-33b int8; B = 4, prompt 512, max_seq 1024)
   tune     (only when asked for) the prefill int8 path's variants side
            by side: the source as it is, each tile's ring 2 <-> 3 stages
-           deep, and each tile forced, built from csrc/int8_matmul.cu
-           with -D values of its tuning macros and timed at the
-           projections' shapes, weights hot and cold in L2
+           deep, each tile forced, built from csrc/int8_matmul.cu with
+           -D values of its macros and timed at stablelm's projections
+           and the dense models' w_down, weights hot and cold in L2, each
+           with its error against a float64 product
 
 The last two lines are a {"kernels": [...]} JSON object and the result
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -81,6 +109,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import gc
 import itertools
 import json
 import re
@@ -93,8 +123,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "model", "serve", "recurrent")
-EXTRA_PHASES = ("profile", "profile_recurrent", "tune")
+PHASES = ("build", "kernels", "model", "serve", "recurrent", "dense")
+EXTRA_PHASES = ("profile", "profile_recurrent", "profile_dense", "tune")
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth; fp32 on the
 # CUDA cores, where decode attention and the decode int8 path compute;
@@ -134,8 +164,11 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # no softcap; "recurrentgemma_2b" below is the unpadded 10/1/256.
 RG = "recurrentgemma_2b_q16"
 RG_HEADS, RG_WINDOW = (16, 1, 256), 2048
+# deepseek-coder-33b's heads as its model runs them (56 q heads padded to
+# tp_pad_heads = 64, on 8 kv heads); chameleon-34b's are the same.
 FLASH_HEADS = {"stablelm_1_6b": (H, H, HD), "yi_9b": (32, 4, 128),
-               "gemma2_9b": (16, 8, 256), RG: RG_HEADS}
+               "gemma2_9b": (16, 8, 256), RG: RG_HEADS,
+               "deepseek_coder_33b": (64, 8, 128)}
 # Heads of the decode checks: the flash heads, checked and timed, and the
 # most q heads per kv head of the reference configs, checked only
 # (src/repro/configs/qwen3_moe_235b.py, rep 16; recurrentgemma_2b.py,
@@ -156,12 +189,30 @@ RG_PROJ_KN = ((2560, 7680), (7680, 2560), (2560, 4096), (2560, 256),
 INT8_SHAPES = ([(M, K, N) for M in INT8_M for K, N in PROJ_KN]
                + [(M, K, N) for M in (RG_B, RG_B * RG_T[0])
                   for K, N in RG_PROJ_KN])
+# The dense phase: the five attention-only architectures at published
+# size (src/repro/configs/{gemma2_9b,yi_9b,deepseek_coder_33b,
+# musicgen_large,chameleon_34b}.py), batch B. gemma2-9b's engine runs at
+# max_seq G2_MAX_SEQ with its local layers on a G2_WINDOW-slot ring:
+# a group at G2_GROUPS[0][0] > the window (flash masks by window, the
+# ring wraps), then a shorter one. yi-9b and deepseek-coder-33b run
+# stablelm's schedule at max_seq S_CACHE; musicgen-large and chameleon-34b
+# (embeddings in) a prefill at EMBED_T and EMBED_STEPS teacher-forced
+# steps, model-level.
+G2_MAX_SEQ, G2_WINDOW, G2_CAP = 8192, 4096, 50.0
+G2_GROUPS = ((4200, 24), (1024, 8))
+EMBED_T, EMBED_STEPS = 512, 16
+# The card's memory the dense phase may take at its peak, per model.
+PEAK_LIMIT_BYTES = 75e9
 # The decode main shape: the ragged prefill's rows (valid_from = T_PREFILL
 # - lengths) 16 tokens on, and the profile's decode step's context.
 DECODE_CPOS, DECODE_VF = T_PREFILL + 16, [0, 212, 383, 475]
 DECODE_CTX = 70
 L2_BYTES = 50 << 20
 INT8_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The prefill path (M > 8) with fp32 x against a float64 product, of
+# max|product|: fresh sums a 16 rows of K measured at most 2.9e-6 at every
+# K up to 22016, one mma chain over K 5.3e-5 there (PERF.md).
+INT8_PREFILL_F64_TOL = 1e-5
 LOGIT_TOL = 1e-4
 
 KERNEL_META = {
@@ -350,10 +401,10 @@ def _close(out, ref, tol):
 
 def _flash_cases():
     """(heads, case name, shape and masks) of the flash checks: the
-    stablelm heads through every mask, the yi_9b and gemma2_9b heads
-    with softcap on, a ragged valid_from and a window, and the gemma2_9b
-    heads at a long context (S = 4096, where the fp32 error's margin to
-    its tolerance is thinnest at S = 512)."""
+    stablelm heads through every mask, the yi_9b, gemma2_9b and
+    deepseek_coder_33b heads with softcap on, a ragged valid_from and a
+    window, and the gemma2_9b heads at a long context (S = 4096, where
+    the fp32 error's margin to its tolerance is thinnest at S = 512)."""
     T = T_PREFILL
     yield "stablelm_1_6b", "plain", dict(T=T, KV=H, vf=None)
     yield "stablelm_1_6b", "vf mid/edge/full", dict(T=T, KV=H,
@@ -365,7 +416,7 @@ def _flash_cases():
     yield "stablelm_1_6b", "T not a block multiple", dict(
         T=T - 3, KV=H, vf=[0, 5, 100, 1])
     yield "stablelm_1_6b", "GQA rep=4", dict(T=T, KV=8, vf=[0, 37, 64, 300])
-    for heads in ("yi_9b", "gemma2_9b"):
+    for heads in ("yi_9b", "gemma2_9b", "deepseek_coder_33b"):
         yield heads, "vf + softcap", dict(vf=[0, 37, 64, T], cap=50.0, T=T)
         yield heads, "window + softcap, T not a block multiple", dict(
             vf=[0, 5, 100, 1], cap=50.0, window=128, T=T - 3)
@@ -439,6 +490,229 @@ def _decode_cases():
         yield RG, f"model ring, cache_pos {cpos}", dict(
             kind="wrap", B=RG_B, S=RG_WINDOW, cpos=cpos, vf=None,
             window=RG_WINDOW)
+
+
+def _dense_flash_cases():
+    """(label, heads, case) of the dense models' prefill attention as
+    their phase runs it: gemma2-9b's local layers (window, softcap) and
+    global layers at its first group, and its second group; yi-9b and
+    deepseek-coder-33b at the first group of stablelm's schedule (its
+    ragged valid_from); chameleon-34b and musicgen-large at EMBED_T."""
+    g2, vf_g2 = FLASH_HEADS["gemma2_9b"], [0] * B
+    vf_sched = [T_SERVE - n for n in LENS_FIRST]
+    T1, T2 = G2_GROUPS[0][0], G2_GROUPS[1][0]
+    yield "gemma2_9b local", g2, dict(T=T1, vf=vf_g2, window=G2_WINDOW,
+                                      cap=G2_CAP)
+    yield "gemma2_9b global", g2, dict(T=T1, vf=vf_g2, cap=G2_CAP)
+    yield "gemma2_9b second group", g2, dict(T=T2, vf=vf_g2,
+                                             window=G2_WINDOW, cap=G2_CAP)
+    for arch in ("yi_9b", "deepseek_coder_33b"):
+        yield arch, FLASH_HEADS[arch], dict(T=T_SERVE, vf=vf_sched)
+    yield "chameleon_34b", FLASH_HEADS["deepseek_coder_33b"], dict(
+        T=EMBED_T, vf=None)
+    yield "musicgen_large", FLASH_HEADS["stablelm_1_6b"], dict(T=EMBED_T,
+                                                               vf=None)
+
+
+def _dense_decode_cases():
+    """(label, heads, case) of the dense models' decode attention as their
+    phase runs it: gemma2-9b's local ring (linear=False) wrapped 10 steps
+    after the first group, its global layers' linear G2_MAX_SEQ cache
+    there, its local ring in the second group (not wrapped); yi-9b and
+    deepseek-coder-33b 36 steps into the first group of stablelm's
+    schedule; chameleon-34b and musicgen-large 8 steps after EMBED_T."""
+    g2, vf_g2 = FLASH_HEADS["gemma2_9b"], [0] * B
+    vf_sched = [T_SERVE - n for n in LENS_FIRST]
+    c1, c2 = G2_GROUPS[0][0] + 10, G2_GROUPS[1][0] + 4
+    ring = dict(S=G2_WINDOW, linear=False, window=G2_WINDOW, cap=G2_CAP,
+                vf=vf_g2)
+    yield "gemma2_9b local ring", g2, dict(ring, kind="wrap", cpos=c1)
+    yield "gemma2_9b global", g2, dict(S=G2_MAX_SEQ, kind="linear", cpos=c1,
+                                       linear=True, cap=G2_CAP, vf=vf_g2)
+    yield "gemma2_9b local ring, second group", g2, dict(
+        ring, kind="linear", cpos=c2)
+    for arch in ("yi_9b", "deepseek_coder_33b"):
+        yield arch, FLASH_HEADS[arch], dict(S=S_CACHE, kind="linear",
+                                            cpos=T_SERVE + 36, linear=True,
+                                            vf=vf_sched)
+    for arch, heads in (("chameleon_34b", "deepseek_coder_33b"),
+                        ("musicgen_large", "stablelm_1_6b")):
+        yield arch, FLASH_HEADS[heads], dict(S=S_CACHE, kind="linear",
+                                             cpos=EMBED_T + 8, linear=True,
+                                             vf=None)
+
+
+def _flash_work(Bn, T, vf, window, Hq, KV, hd, es):
+    """(bytes, operations) of a prefill attention call: the rows of q, k
+    and v from each row's valid_from on read once, the output written
+    once, valid_from; two products of 2 FLOPs a multiply-add over the
+    (query, key) pairs attended (causal, in the window, from
+    valid_from)."""
+    i = np.arange(T)
+    pairs = rows = 0
+    for b in range(Bn):
+        v0 = 0 if vf is None else vf[b]
+        lo = np.maximum(v0, i - window + 1) if window else np.full(T, v0)
+        pairs += int(np.clip(i - lo + 1, 0, None)[i >= v0].sum())
+        rows += max(0, T - v0)
+    nbytes = (rows * (Hq + 2 * KV) + Bn * T * Hq) * hd * es \
+        + (0 if vf is None else Bn * 4)
+    return nbytes, 4 * hd * Hq * pairs
+
+
+def _flash_mask(T, window, vf):
+    """(B or 1, 1, T, T) bool: the (query, key) pairs a prefill attends
+    (causal, in the window, from each row's valid_from), as SDPA's
+    attn_mask."""
+    pq = torch.arange(T, device="cuda")
+    m = pq[None, :] <= pq[:, None]
+    if window:
+        m = m & (pq[None, :] > pq[:, None] - window)
+    m = m[None]
+    if vf is not None:
+        m = m & (pq[None, None, :] >= vf[:, None, None])
+    return m[:, None]
+
+
+def _decode_work(pos, cpos, vf, window, Bn, Hq, KV, hd, es):
+    """(bytes, operations, (B, S) attended slots) of a decode call: the K
+    and V rows each batch row attends (stored position in [valid_from,
+    cache_pos], in the window) read once, q and the output once, the
+    stored positions of the slots any row attends, valid_from; two
+    products of 2 FLOPs a multiply-add per attended row and q head."""
+    ok = (pos >= 0) & (pos <= cpos)
+    if window:
+        ok &= pos > cpos - window
+    att = ok[None].expand(Bn, -1) if vf is None else \
+        ok[None] & (pos[None] >= vf[:, None])
+    n = int(att.sum())
+    nbytes = (n * KV * hd * 2 + 2 * Bn * Hq * hd) * es \
+        + int(att.any(0).sum()) * 4 + (0 if vf is None else Bn * 4)
+    return nbytes, 4 * hd * Hq * n, att
+
+
+def _dense_attention_rows(gen, vft):
+    """Check and time flash and decode at the dense models' shapes
+    (_dense_flash_cases, _dense_decode_cases), fp32 and bf16: each
+    against its plain version (TOL), then the kernel's time (with the
+    softcap the model runs, and without it where it runs one: the
+    library call has none), the plain version's, SDPA's (no softcap)
+    and the bound; decode also L2-cold and its split plan. Returns
+    (flash rows, decode rows, largest fp32 flash error, largest fp32
+    decode error)."""
+    from repro_torch.kernels import ops, ref as R
+    from repro_torch.kernels.decode_attention import decode_plan
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    frows, drows, fworst, dworst = [], [], 0.0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for label, (Hq, KV, hd), c in _dense_flash_cases():
+            T, vf, es = c["T"], vft(c["vf"]), dtype.itemsize
+            win, cap = c.get("window", 0), c.get("cap", 0.0)
+            q, k, v = _flash_inputs(gen, dtype, Hq, KV, hd, T, B)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
+                v.transpose(1, 2)
+            run = lambda cap_=cap: ops.flash_attention_btHd(
+                q, k, v, vf, window=win, softcap=cap_)
+            plain = lambda: R.flash_attention_ref(qt, kt, vt, window=win,
+                                                  cap=cap, valid_from=vf)
+            err, ok = _close(run(), plain().transpose(1, 2), TOL[dtype])
+            shape = (f"{label}: B={B} T=S={T} Hq={Hq} KV={KV} hd={hd} {dt} "
+                     f"window={win} softcap={cap} valid_from={c['vf']}")
+            log(f"flash dense {shape}: max_abs_err={err:.3e} "
+                f"tol={TOL[dtype]} {'ok' if ok else 'FAIL'}")
+            require(ok, f"flash dense {shape}")
+            if dtype == torch.float32:
+                fworst = max(fworst, err)
+            nbytes, flops = _flash_work(B, T, c["vf"], win, Hq, KV, hd, es)
+            tb, by = bound(nbytes, flops, dtype, FLASH_PEAK_FLOPS)
+            mask = _flash_mask(T, win, vf)
+            r = dict(heads=label, dtype=dt, hd=hd, max_abs_err=err,
+                     tol=TOL[dtype], ms=bench_ms(run),
+                     plain_ms=bench_ms(plain), bound_ms=tb, bound_by=by,
+                     bound_fp32_cores_ms=bound(nbytes, flops,
+                                               torch.float32)[0],
+                     library_ms=bench_ms(lambda: sdpa(
+                         qt, kt, vt, attn_mask=mask, enable_gqa=Hq != KV)),
+                     shape=shape)
+            if cap:
+                r["ms_no_softcap"] = bench_ms(lambda: run(0.0))
+            del q, k, v, qt, kt, vt, mask
+            torch.cuda.empty_cache()
+            frows.append(r)
+            log(f"time flash_attention dense {shape}: {json.dumps(r)}")
+        for label, (Hq, KV, hd), c in _dense_decode_cases():
+            S, cpos, vfl = c["S"], c["cpos"], c["vf"]
+            win, cap, linear = c.get("window", 0), c.get("cap", 0.0), \
+                c["linear"]
+            vf, es = vft(vfl), dtype.itemsize
+            q, k, v = _decode_inputs(gen, dtype, Hq, KV, hd, S, B)
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            pos = _decode_pos(c["kind"], cpos, S)
+            cpt = torch.tensor(cpos, dtype=torch.int32, device="cuda")
+            run = lambda k_=k, v_=v, cap_=cap: ops.decode_attention(
+                q, k_, v_, pos, cpt, vf, window=win, softcap=cap_,
+                linear=linear)
+            plain = lambda: R.decode_attention_ref(
+                q[:, 0], kt, vt, pos, cpt, cap=cap, window=win,
+                valid_from=vf)
+            err, ok = _close(run()[:, 0], plain(), TOL[dtype])
+            shape = (f"{label}: B={B} S={S} cache_pos={cpos} Hq={Hq} KV={KV} "
+                     f"hd={hd} {dt} {'linear' if linear else 'ring'} "
+                     f"window={win} softcap={cap} valid_from={vfl}")
+            log(f"decode dense {shape}: max_abs_err={err:.3e} "
+                f"tol={TOL[dtype]} {'ok' if ok else 'FAIL'}")
+            require(ok, f"decode dense {shape}")
+            if dtype == torch.float32:
+                dworst = max(dworst, err)
+            nbytes, flops, att = _decode_work(pos, cpos, vf, win, B, Hq, KV,
+                                              hd, es)
+            tb, by = bound(nbytes, flops, dtype)
+            # Copies of K and V whose attended rows fill the L2 4 times
+            # over, as the timed rows above take them.
+            attended = int(att.sum()) * KV * hd * 2 * es
+            n = max(2, min(-(-4 * L2_BYTES // attended),
+                           (4 << 30) // (k.nbytes + v.nbytes), COLD_COPIES))
+            kv = [(k.clone(), v.clone()) for _ in range(n)]
+            r = dict(heads=label, dtype=dt, cache_pos=cpos, max_abs_err=err,
+                     tol=TOL[dtype], ms=bench_ms(run),
+                     cold_ms=bench_cold_ms(lambda kv_: run(*kv_), kv),
+                     plain_ms=bench_ms(plain), bound_ms=tb, bound_by=by,
+                     library_ms=bench_ms(lambda: sdpa(
+                         q.transpose(1, 2), kt, vt,
+                         attn_mask=att[:, None, None, :],
+                         enable_gqa=Hq != KV)),
+                     plan=decode_plan(q[:, 0], kt, vt), shape=shape)
+            if cap:
+                r["ms_no_softcap"] = bench_ms(lambda: run(cap_=0.0))
+            del q, k, v, kt, vt, kv, att
+            torch.cuda.empty_cache()
+            drows.append(r)
+            log(f"time decode_attention dense {shape}: {json.dumps(r)}")
+    return frows, drows, fworst, dworst
+
+
+def _dense_int8_shapes():
+    """{(M, K, N): the archs that run it} of the dense int8 candidates'
+    projections (wq, wk / wv, wo, w_up / w_gate, w_down) at the decode M
+    and at the prefill M of their runs: gemma2-9b's first group,
+    yi-9b's and deepseek-coder-33b's serve prompts, chameleon-34b's
+    EMBED_T."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, M in (("gemma2_9b", B * G2_GROUPS[0][0]),
+                    ("yi_9b", B * T_SERVE),
+                    ("deepseek_coder_33b", B * T_SERVE),
+                    ("chameleon_34b", B * EMBED_T)):
+        c = get_config(arch)
+        d, f = c.d_model, c.d_ff
+        hq, kv = c.q_heads_padded * c.head_dim, c.n_kv_heads * c.head_dim
+        for m in (B, M):
+            for K, N in ((d, hq), (d, kv), (hq, d), (d, f), (f, d)):
+                archs = out.setdefault((m, K, N), [])
+                if arch not in archs:
+                    archs.append(arch)
+    return out
 
 
 def _edge_masks(chunk, edge):
@@ -590,8 +864,10 @@ def phase_kernels(results):
     # -- int8 matmul -------------------------------------------------------
     iworst = 0.0
     ipins = {}
+    dense_int8 = _dense_int8_shapes()
+    int8_shapes = INT8_SHAPES + [s for s in dense_int8 if s not in INT8_SHAPES]
     for dtype in (torch.float32, torch.bfloat16):
-        for M, K, N in INT8_SHAPES:
+        for M, K, N in int8_shapes:
             x = _randn(gen, (M, K), dtype)
             wq = torch.randint(-127, 128, (K, N), generator=gen,
                                device="cuda", dtype=torch.int8)
@@ -608,6 +884,16 @@ def phase_kernels(results):
                 f"rel={err / scale_:.3e} tol={INT8_TOL[dtype]}*max|ref| "
                 f"{'ok' if ok else 'FAIL'}")
             require(ok, f"int8 M={M} K={K} N={N} {dtype}")
+            if M > 8 and dtype == torch.float32:
+                exact = x.double() @ (wq.double() * sc.double())
+                rel = float((out.double() - exact).abs().max()
+                            / exact.abs().max())
+                ok = rel <= INT8_PREFILL_F64_TOL
+                log(f"int8 prefill fp32 M={M} K={K} N={N} vs float64: "
+                    f"rel={rel:.3e} tol={INT8_PREFILL_F64_TOL} "
+                    f"{'ok' if ok else 'FAIL'}")
+                require(ok, f"int8 prefill M={M} K={K} N={N} vs float64")
+                del exact
             if M <= B * T_SERVE:   # the decode path and a prefill M
                 same = torch.equal(ops.int8_matmul(x, wq, sc), out)
                 ipins[f"M={M} K={K} N={N} {str(dtype)[6:]}"] = same
@@ -619,24 +905,16 @@ def phase_kernels(results):
 
     # -- times at the main path's shapes (fp32, as the model runs) ---------
     f32 = torch.float32
-    lens = [T_PREFILL, 300, 129, 37]      # ragged left-padded prefill
-    vf = vft([T_PREFILL - n for n in lens])
-    pairs = sum(sum(max(0, i - (T_PREFILL - n) + 1) for i in range(T_PREFILL))
-                for n in lens)
-    pos_q = torch.arange(T_PREFILL, device="cuda")
-    bool_mask = ((pos_q[None, :] <= pos_q[:, None])[None]
-                 & (pos_q[None, None, :] >= vf[:, None, None]))[:, None]
+    # A ragged left-padded prefill.
+    vfl = [T_PREFILL - n for n in (T_PREFILL, 300, 129, 37)]
+    vf = vft(vfl)
+    bool_mask = _flash_mask(T_PREFILL, 0, vf)
     frows = []
     for dtype in (f32, torch.bfloat16):
         for heads, (Hq, KV, hd) in FLASH_HEADS.items():
             q, k, v = _flash_inputs(gen, dtype, Hq, KV, hd)
-            # Two products of 2 FLOPs a multiply-add over the attended
-            # pairs. Bytes: the rows of q, k and v from valid_from on (a
-            # query row below it attends nothing, a key below it is never
-            # read) once, the whole output written once, valid_from.
-            flops = 4 * hd * Hq * pairs
-            nbytes = (sum(lens) * (Hq + 2 * KV) + B * T_PREFILL * Hq) \
-                * hd * q.element_size() + B * 4
+            nbytes, flops = _flash_work(B, T_PREFILL, vfl, 0, Hq, KV, hd,
+                                        q.element_size())
             tb, by = bound(nbytes, flops, dtype, FLASH_PEAK_FLOPS)
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
                 v.transpose(1, 2)
@@ -657,7 +935,7 @@ def phase_kernels(results):
                                         enable_gqa=Hq != KV)),
                 shape=f"{heads} heads: B={B} T=S={T_PREFILL} Hq={Hq} "
                       f"KV={KV} hd={hd} {str(dtype)[6:]} "
-                      f"valid_from={[T_PREFILL - n for n in lens]}")
+                      f"valid_from={vfl}")
             del q, k, v, qt, kt, vt
             torch.cuda.empty_cache()
             frows.append(r)
@@ -671,13 +949,10 @@ def phase_kernels(results):
             q, k, v = _flash_inputs(gen, dtype, Hq, KV, hd, T, RG_B)
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
                 v.transpose(1, 2)
-            pairs_rg = RG_B * sum(min(i + 1, RG_WINDOW) for i in range(T))
-            nbytes = RG_B * T * (2 * Hq + 2 * KV) * hd * q.element_size()
-            flops = 4 * hd * Hq * pairs_rg
+            nbytes, flops = _flash_work(RG_B, T, None, RG_WINDOW, Hq, KV, hd,
+                                        q.element_size())
             tb, by = bound(nbytes, flops, dtype, FLASH_PEAK_FLOPS)
-            pq = torch.arange(T, device="cuda")
-            wmask = ((pq[None, :] <= pq[:, None])
-                     & (pq[None, :] > pq[:, None] - RG_WINDOW))
+            wmask = _flash_mask(T, RG_WINDOW, None)
             r = dict(
                 heads="recurrentgemma_2b model", dtype=str(dtype)[6:], hd=hd,
                 max_abs_err=errs[RG, dtype], tol=TOL[dtype],
@@ -698,6 +973,11 @@ def phase_kernels(results):
             torch.cuda.empty_cache()
             frows.append(r)
             log(f"time flash_attention {r['shape']}: {json.dumps(r)}")
+    # The dense models' attention, checked and timed (decode rows join
+    # the decode timings below).
+    dense_f, dense_d, fw, dw = _dense_attention_rows(gen, vft)
+    frows += dense_f
+    worst = max(worst, fw)
     main = frows[0]   # stablelm heads, fp32: the main path's shape
     results["flash_attention"] = dict(
         main, max_abs_err=worst, rows=frows,
@@ -707,7 +987,9 @@ def phase_kernels(results):
               "check; bound_ms: bytes (q, k and v from valid_from on) or "
               "operations at three TF32 passes (fp32) or one bf16 pass on "
               "the tensor cores; rows: each heads and dtype (timed without "
-              "softcap, so SDPA computes the same function)")
+              "softcap, so SDPA computes the same function; the dense "
+              "models' rows with the softcap they run, and ms_no_softcap "
+              "beside SDPA)")
 
     drows = []
     for dtype in (f32, torch.bfloat16):
@@ -725,20 +1007,14 @@ def phase_kernels(results):
             cpt = torch.tensor(cpos, dtype=torch.int32, device="cuda")
             kt, vt = k.transpose(1, 2), v.transpose(1, 2)
             es = q.element_size()
-            # Bytes: the K and V rows attended (from each row's valid_from
-            # to cache_pos), q and the output once, the stored positions
-            # of those slots, valid_from. Operations: two products of 2
-            # FLOPs a multiply-add per attended row and q head.
-            n_valid = sum(cpos + 1 - x for x in vfl)
-            nbytes = (n_valid * KV * hd * 2 + 2 * Bn * Hq * hd) * es \
-                + (cpos + 1 - min(vfl)) * 4 + Bn * 4
-            tb, by = bound(nbytes, 4 * hd * Hq * n_valid, dtype)
-            dmask = ((pos >= 0) & (pos <= cpos))[None, :] & (
-                pos[None, :] >= vf[:, None])
+            nbytes, flops, dmask = _decode_work(pos, cpos, vf, 0, Bn, Hq, KV,
+                                                hd, es)
+            tb, by = bound(nbytes, flops, dtype)
             # Copies of K and V whose attended rows fill the L2 4 times
             # over (at most 4 GB of copies, and at most COLD_COPIES: the
             # 2 x copies calls must all queue behind one sleep).
-            n = max(2, min(-(-4 * L2_BYTES // (n_valid * KV * hd * 2 * es)),
+            attended = int(dmask.sum()) * KV * hd * 2 * es
+            n = max(2, min(-(-4 * L2_BYTES // attended),
                            (4 << 30) // (k.nbytes + v.nbytes), COLD_COPIES))
             kv = [(k.clone(), v.clone()) for _ in range(n)]
             r = dict(
@@ -776,11 +1052,9 @@ def phase_kernels(results):
         pos = _decode_pos("wrap", cpos, S)
         cpt = torch.tensor(cpos, dtype=torch.int32, device="cuda")
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-        es = q.element_size()
-        n_valid = RG_B * S
-        nbytes = (n_valid * KV * hd * 2 + 2 * RG_B * Hq * hd) * es + S * 4
-        tb, by = bound(nbytes, 4 * hd * Hq * n_valid, dtype)
-        dmask = ((pos >= 0) & (pos <= cpos) & (pos > cpos - RG_WINDOW))
+        nbytes, flops, dmask = _decode_work(pos, cpos, None, RG_WINDOW, RG_B,
+                                            Hq, KV, hd, q.element_size())
+        tb, by = bound(nbytes, flops, dtype)
         n = max(2, -(-4 * L2_BYTES // (k.nbytes + v.nbytes)))
         kv = [(k.clone(), v.clone()) for _ in range(n)]
         r = dict(
@@ -796,7 +1070,7 @@ def phase_kernels(results):
             library_ms=bench_ms(lambda: torch.nn.functional
                                 .scaled_dot_product_attention(
                                     q.transpose(1, 2), kt, vt,
-                                    attn_mask=dmask[None, None, None, :],
+                                    attn_mask=dmask[:, None, None, :],
                                     enable_gqa=True)),
             plan=decode_plan(q[:, 0], kt, vt),
             shape=f"recurrentgemma_2b local layer: B={RG_B} S={S} ring "
@@ -807,6 +1081,8 @@ def phase_kernels(results):
         torch.cuda.empty_cache()
         drows.append(r)
         log(f"time decode_attention {r['shape']}: {json.dumps(r)}")
+    drows += dense_d
+    dworst = max(dworst, dw)
     main = drows[0]   # stablelm heads, fp32, cache_pos 528
     results["decode_attention"] = dict(
         main, max_abs_err=dworst, rows=drows,
@@ -814,12 +1090,13 @@ def phase_kernels(results):
         shape=main["shape"] + "; max_abs_err: the largest over every fp32 "
               "check; bound_ms: bytes of the attended K and V rows; "
               "cold_ms: K and V cold in L2; rows: each heads, dtype and "
-              "cache_pos (S = 4096 for gemma2_9b's last); plan: the "
+              "cache_pos (S = 4096 for gemma2_9b's last), then the dense "
+              "models' as they run them; plan: the "
               "launch's split (splits blocks a group, one cluster; block "
               "c takes chunks c, c + splits, ... of the cache axis)")
 
     rows = {}
-    for M, K, N in INT8_SHAPES:
+    for M, K, N in int8_shapes:
         x = _randn(gen, (M, K), f32)
         wq = torch.randint(-127, 128, (K, N), generator=gen,
                            device="cuda", dtype=torch.int8)
@@ -868,13 +1145,17 @@ def phase_kernels(results):
         recurrentgemma=[dict(M=M, K=K, N=N, **rows[(M, K, N)])
                         for M, K, N in INT8_SHAPES[len(INT8_M) *
                                                    len(PROJ_KN):]],
+        dense=[dict(archs=dense_int8[M, K, N], M=M, K=K, N=N,
+                    **rows[(M, K, N)]) for M, K, N in dense_int8],
         shape=f"M={B} K={D} N={F} fp32 (decode w_up); max_abs_err is "
               f"relative to max|ref|; cold_ms: weights cold in L2; "
               f"small_m: the three decode shapes; prefill: the M > 8 path "
               f"at the serve and model phases' prefill M, its bound_ms "
               f"at the bf16 tensor-core rate for two passes; "
               f"recurrentgemma: recurrentgemma-2b's projections at the "
-              f"decode M and a T={RG_T[0]} group's prefill M")
+              f"decode M and a T={RG_T[0]} group's prefill M; dense: the "
+              f"dense int8 candidates' projections at the decode M and "
+              f"their prefill M")
     for name in ("flash_attention", "decode_attention"):
         log(f"time {name}: {json.dumps(results[name])}")
 
@@ -915,9 +1196,106 @@ def _dequantized(tree):
     return tree
 
 
-def phase_model(p32, p8):
+def tree_by_group(cfg, seed, device="cuda", quantize=True):
+    """Random weights of cfg from `seed`, built one scan group at a time:
+    each group's slice of a projection leaf is drawn in fp32 on `device`
+    and, with `quantize`, turned into int8 by the package's own
+    per-output-channel rule (`quant.int8._quantize_matmul`) and written
+    into preallocated int8 `q` / fp32 `scale` stacks, so no whole fp32
+    stack ever exists (a 34 B model's fp32 tree does not fit the card).
+    A stacked leaf's amax already excludes the group axis, so this
+    equals `quantize_exec_tree` of the fp32 tree that quantize=False
+    stacks from the same draws, bit for bit (tests/test_torch_dense.py).
+    Every other leaf is drawn whole, as `init_params` draws it."""
+    from repro_torch.models import params as pmod
+    from repro_torch.quant.int8 import PROJ_OUT_AXES, _quantize_matmul
+    if cfg.tail_kinds:
+        raise ValueError(f"{cfg.name}: tail layers are not built by group")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f32 = torch.float32
+
+    def draw(shape, init, stacked=False):
+        return pmod._draw(gen, shape, init, f32, device, stacked=stacked)
+
+    def fill(d):
+        out = {}
+        for key, leaf in d.items():
+            if isinstance(leaf, dict):
+                out[key] = fill(leaf)
+                continue
+            shape, init, n = leaf
+            if key not in PROJ_OUT_AXES:
+                out[key] = draw((n,) + shape, init, stacked=True)
+            elif not quantize:
+                out[key] = torch.stack([draw(shape, init) for _ in range(n)])
+            else:
+                q = torch.empty((n,) + shape, dtype=torch.int8, device=device)
+                scale = None
+                for g in range(n):
+                    part = _quantize_matmul(draw(shape, init),
+                                            PROJ_OUT_AXES[key], stacked=False)
+                    if scale is None:
+                        scale = torch.empty((n,) + part["scale"].shape,
+                                            dtype=f32, device=device)
+                    q[g], scale[g] = part["q"], part["scale"]
+                    del part
+                out[key] = {"q": q, "scale": scale}
+        return out
+    # Stacked leaves come back from model_tree as (shape, init, groups)
+    # and are drawn by `fill`, in the tree's order.
+    tree = pmod.model_tree(cfg, draw, lambda shape, init, n: (shape, init, n))
+    tree["blocks"] = tuple(fill(b) for b in tree["blocks"])
+    return tree
+
+
+def _cuda_vs_naive(label, cfg, params, naive_params, toks, vf, forced,
+                   max_seq):
+    """A prefill of toks (valid_from vf) and a teacher-forced decode step
+    for each of `forced`, through `models.model` on the "cuda" path with
+    params and on the "naive" path with naive_params: the same tree, or
+    the dequantized one of an int8 tree (whose naive run must then
+    launch no int8 kernel). The naive run launches no attention kernel.
+    Returns the (steps, B, V) logits of each."""
     from repro_torch.kernels import ops
     from repro_torch.models.model import decode_step, prefill
+    runs = {}
+    T = toks.shape[1]
+    for impl, p in (("cuda", params), ("naive", naive_params)):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        before = ops.launch_counts()
+        with torch.no_grad():
+            lg, cache = prefill(p, toks, c, max_seq, logits_last_only=True,
+                                valid_from=vf)
+            steps = [lg[:, 0]]
+            for s, tok in enumerate(forced):
+                lg, cache = decode_step(p, tok, cache, T + s, c,
+                                        valid_from=vf)
+                steps.append(lg[:, 0])
+        runs[impl] = torch.stack(steps)
+        del cache
+        if impl == "naive":
+            after = ops.launch_counts()
+            quiet = ["flash_attention", "decode_attention"] + (
+                ["int8_matmul"] if naive_params is not params else [])
+            for name in quiet:
+                require(after[name] == before[name],
+                        f"{label}: the naive run launched {name}")
+    require(bool(torch.isfinite(runs["cuda"]).all()),
+            f"{label}: non-finite logits")
+    return runs["cuda"], runs["naive"]
+
+
+def _worst_rel(label, a, b, tol=LOGIT_TOL):
+    """The largest |a - b| / max|b| over the steps (the leading axis);
+    each step must stay within tol."""
+    rels = [float((a[s] - b[s]).abs().max() / b[s].abs().max())
+            for s in range(a.shape[0])]
+    require(max(rels) <= tol, f"{label}: max |dlogit|/max|logit| by step "
+                              f"{[f'{r:.2e}' for r in rels]} (tol {tol})")
+    return max(rels)
+
+
+def phase_model(p32, p8):
     from repro_torch.serving.engine import InferenceEngine
     rng = np.random.default_rng(0)
     V = _full_width("cuda").vocab
@@ -925,42 +1303,18 @@ def phase_model(p32, p8):
     toks = torch.as_tensor(rng.integers(0, V, (B, T_PREFILL)),
                            dtype=torch.int32, device="cuda")
     vf = torch.as_tensor(T_PREFILL - lens, dtype=torch.int32, device="cuda")
-    forced = rng.integers(0, V, (16, B, 1))
+    forced = [torch.as_tensor(f, dtype=torch.int32, device="cuda")
+              for f in rng.integers(0, V, (16, B, 1))]
     # The naive run of int8 takes the dequantized tree, so the int8
     # kernel's prefill and decode paths are held against plain fp32
     # arithmetic at full width.
     for label, params in (("fp32", p32), ("int8", p8)):
-        runs = {}
-        for impl in ("cuda", "naive"):
-            cfg = _full_width(impl)
-            if impl == "naive" and label == "int8":
-                params = _dequantized(p8)
-            int8_before = ops.launch_counts()["int8_matmul"]
-            with torch.no_grad():
-                lg, cache = prefill(params, toks, cfg, S_CACHE,
-                                    logits_last_only=True, valid_from=vf)
-                steps = [lg[:, 0]]
-                for s in range(16):
-                    tok = torch.as_tensor(forced[s], dtype=torch.int32,
-                                          device="cuda")
-                    lg, cache = decode_step(params, tok, cache,
-                                            T_PREFILL + s, cfg,
-                                            valid_from=vf)
-                    steps.append(lg[:, 0])
-            runs[impl] = torch.stack(steps)
-            del cache
-            if impl == "naive":
-                require(ops.launch_counts()["int8_matmul"] == int8_before,
-                        f"{label}: the naive run launched the int8 kernel")
-        del params
+        naive_p = _dequantized(p8) if label == "int8" else params
+        a, b = _cuda_vs_naive(label, _full_width("cuda"), params, naive_p,
+                              toks, vf, forced, S_CACHE)
+        del naive_p
         torch.cuda.empty_cache()
-        a, b = runs["cuda"], runs["naive"]
-        require(bool(torch.isfinite(a).all()), f"{label}: non-finite logits")
-        worst = 0.0
-        for s in range(a.shape[0]):
-            rel = float((a[s] - b[s]).abs().max() / b[s].abs().max())
-            worst = max(worst, rel)
-            require(rel <= LOGIT_TOL, f"{label} step {s}: {rel:.2e}")
+        worst = _worst_rel(label, a, b)
         log(f"model {label}: stablelm-1.6b full width, prefill B={B} "
             f"T={T_PREFILL} lengths={lens.tolist()} + 16 decode steps, cuda "
             f"vs naive{' (dequantized weights)' if label == 'int8' else ''}: "
@@ -1081,13 +1435,13 @@ def _model_steps(cfg, params, fed):
     return out
 
 
-def _graphs_vs_eager(label, params, rng):
+def _graphs_vs_eager(label, params, rng, cfg=None):
     """Full width: the engine (decode as one captured CUDA graph, prefill
     as one a prompt length, over one persistent cache) against
     `models.model` run eagerly on a fresh cache, bit for bit at every
-    step."""
+    step (cfg: stablelm-1.6b's by default)."""
     from repro_torch.serving.engine import InferenceEngine
-    cfg = _full_width("cuda")
+    cfg = cfg or _full_width("cuda")
     V = cfg.vocab
     row = np.zeros(T_SERVE, np.int32)
     row[T_SERVE - BACKFILL_LEN:] = rng.integers(0, V, BACKFILL_LEN)
@@ -1103,7 +1457,7 @@ def _graphs_vs_eager(label, params, rng):
     rel = max(float(np.abs(g - w).max() / np.abs(w).max())
               for g, w in zip(got, want))
     st = eng.stats
-    log(f"model {label} graphs vs eager: stablelm-1.6b full width, "
+    log(f"model {label} graphs vs eager: {cfg.name} full width, "
         f"prefill T={T_SERVE} lengths={LENS_FIRST}, {GRAPH_STEPS} decode "
         f"steps, a backfill into slot 1 before step {BACKFILL_AT}, prefill "
         f"T={T_SECOND} + 4 steps: {len(got)} steps, bit-identical at "
@@ -1270,7 +1624,8 @@ def _served_groups(eng, groups, rng):
     step's (B, 1) tokens)."""
     out, fed = [], []
     for T, n in groups:
-        toks = [rng.integers(0, eng.cfg.vocab, (RG_B, T)).astype(np.int32)]
+        toks = [rng.integers(0, eng.cfg.vocab,
+                             (eng.batch_size, T)).astype(np.int32)]
         out.append(eng.run_prefill(toks[0]))
         for _ in range(n):
             toks.append(out[-1].argmax(-1).astype(np.int32)[:, None])
@@ -1279,19 +1634,24 @@ def _served_groups(eng, groups, rng):
     return out, fed
 
 
-def _eager_groups(cfg, params, fed):
+def _eager_groups(cfg, params, fed, max_seq=RG_MAX_SEQ, masked=False):
     """The same tokens through `models.model` eagerly, a fresh cache a
-    group: the logits of every step."""
+    group: the logits of every step. masked: pass valid_from = 0, as the
+    engine does for an attention-only pattern."""
     from repro_torch.models.model import decode_step, prefill
     out = []
     for toks in fed:
         T = toks[0].shape[1]
+        vf = torch.zeros(toks[0].shape[0], dtype=torch.int32,
+                         device="cuda") if masked else None
         lg, cache = prefill(params, torch.tensor(toks[0], device="cuda"),
-                            cfg, RG_MAX_SEQ, logits_last_only=True)
+                            cfg, max_seq, logits_last_only=True,
+                            valid_from=vf)
         out.append(lg[:, 0].cpu().numpy())
         for i, tok in enumerate(toks[1:]):
-            lg, _ = decode_step(params, torch.tensor(tok, device="cuda"),
-                                cache, T + i, cfg)
+            # [0]: no name left holding the cache past `del cache`.
+            lg = decode_step(params, torch.tensor(tok, device="cuda"),
+                             cache, T + i, cfg, valid_from=vf)[0]
             out.append(lg[:, 0].cpu().numpy())
         del cache
     return out
@@ -1302,7 +1662,7 @@ def _bit_equal(label, got, want, stats):
                if not np.array_equal(g, w)]
     rel = max(float(np.abs(g - w).max() / np.abs(w).max())
               for g, w in zip(got, want))
-    log(f"recurrent {label} graphs vs eager: {len(got)} steps, "
+    log(f"{label} graphs vs eager: {len(got)} steps, "
         f"bit-identical at {len(got) - len(unequal)} (unequal: {unequal}), "
         f"max |dlogit|/max|logit| = {rel:.3e}; captures="
         f"{stats.graph_captures} replays={stats.graph_replays} "
@@ -1344,7 +1704,8 @@ def phase_recurrent(params):
                         f"{name}: ring positions {int(pos.min())}.."
                         f"{int(pos.max())}")
             want = _eager_groups(cfg, p, fed)
-        _bit_equal(f"{name} ({_arch(name)} full width, groups {groups})",
+        _bit_equal(f"recurrent {name} ({_arch(name)} full width, groups "
+                   f"{groups})",
                    got, want, eng.stats)
         del eng
         torch.cuda.empty_cache()
@@ -1389,22 +1750,16 @@ def phase_recurrent(params):
         log(f"recurrent {name}: {time.perf_counter() - t0:.1f} s")
 
 
-def phase_serve_recurrent(params):
-    """The recurrent candidates behind CNNSelectServer: profiling, then
-    requests under cnnselect. Every kernel's launches by graph replays
-    on this path (the recurrentgemma engines; mamba2 launches none)
-    must be > 0. Returns the path's launch counts."""
+def _serve_candidates(tag, engines, acc, n_requests, seed):
+    """Candidates behind CNNSelectServer: profiling, then n_requests
+    requests under cnnselect, budgets cycling between each two
+    neighbouring candidates' means and a generous one, so the selection
+    has a real choice to make. The launch counters are set to 0 just
+    before and read just after: every kernel's launches by graph
+    replays on this path must be > 0. Returns the path's counts."""
     from repro_torch.kernels import ops
     from repro_torch.serving.batching import Request
-    from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.server import CNNSelectServer, ServedModel
-    engines = {n: InferenceEngine(_cfg(n), p, batch_size=RG_B,
-                                  max_seq=RG_MAX_SEQ, device="cuda")
-               for n, p in params.items()}
-    # Offline task scores of the candidates (set here, as the launcher
-    # sets its tiers).
-    acc = {"recurrentgemma_fp32": 0.72, "recurrentgemma_int8": 0.71,
-           "mamba2_fp32": 0.70}
     ops.reset_launch_counts()
     t_start = time.perf_counter()
     with torch.no_grad():
@@ -1419,23 +1774,24 @@ def phase_serve_recurrent(params):
             log(f"profile {p.name}: mu={p.mu:.2f} ms sigma={p.sigma:.2f} "
                 f"acc={p.accuracy} size={p.size_bytes}")
         mus = sorted(p.mu for p in profs)
-        rng = np.random.default_rng(4)
+        budgets = [(a + b) / 2 for a, b in zip(mus, mus[1:])] + [mus[-1] * 3]
+        rng = np.random.default_rng(seed)
         V = min(e.cfg.vocab for e in engines.values())
-        for i in range(9):
-            # Budgets between the candidates' means and a generous one,
-            # so the selection has a real choice to make.
-            sla = [(mus[0] + mus[1]) / 2, (mus[1] + mus[2]) / 2,
-                   mus[2] * 3][i % 3] + 40.0
+        for i in range(n_requests):
+            sla = budgets[i % len(budgets)] + 40.0
             req = Request(arrival=0.0, rid=i,
                           prompt=rng.integers(0, V, T_SERVE)
                           .astype(np.int32),
                           t_input_ms=float(rng.uniform(5.0, 15.0)))
             rec = srv.handle(req, t_sla=sla)
             require(len(rec["tokens"]) == 8 and rec["e2e_ms"] > 0,
-                    f"recurrent server request {i}")
-            log(f"recurrent server req {i}: sla={sla:.1f} {json.dumps(rec)}")
-        log(f"recurrent server summary: {json.dumps(srv.metrics.summary())}")
+                    f"{tag} server request {i}")
+            log(f"{tag} server req {i}: sla={sla:.1f} {json.dumps(rec)}")
+        log(f"{tag} server summary: {json.dumps(srv.metrics.summary())}")
     torch.cuda.synchronize()
+    counts = dict(ops.launch_counts(),
+                  int8_matmul_prefill=ops.int8_prefill_launches())
+    replayed = ops.replayed_counts()
     for n, e in engines.items():
         st = e.stats
         log(f"serve engine {n}: graph captures {st.graph_captures}, "
@@ -1445,17 +1801,225 @@ def phase_serve_recurrent(params):
             f"{st.decode_time_s:.3f} s")
         require(st.graph_replays == st.prefill_calls + st.decode_calls,
                 f"{n}: every prefill and decode a graph replay")
-    counts = dict(ops.launch_counts(),
-                  int8_matmul_prefill=ops.int8_prefill_launches())
-    replayed = ops.replayed_counts()
-    log(f"serve recurrent launches: {json.dumps(counts)} (of them graph "
+    log(f"serve {tag} launches: {json.dumps(counts)} (of them graph "
         f"replays: {json.dumps(replayed)}) in "
         f"{time.perf_counter() - t_start:.1f} s")
-    for name, n in counts.items():
+    for name in counts:
         require(replayed[name] > 0,
-                f"{name} launched by a graph replay on the recurrent path")
-    del engines, srv
+                f"{name} launched by a graph replay on the {tag} path")
+    del srv
+    return counts
+
+
+def phase_serve_recurrent(params):
+    """The recurrent candidates behind CNNSelectServer (the
+    recurrentgemma engines launch every kernel; mamba2 none). Returns
+    the path's launch counts."""
+    from repro_torch.serving.engine import InferenceEngine
+    engines = {n: InferenceEngine(_cfg(n), p, batch_size=RG_B,
+                                  max_seq=RG_MAX_SEQ, device="cuda")
+               for n, p in params.items()}
+    # Offline task scores of the candidates (set here, as the launcher
+    # sets its tiers).
+    acc = {"recurrentgemma_fp32": 0.72, "recurrentgemma_int8": 0.71,
+           "mamba2_fp32": 0.70}
+    counts = _serve_candidates("recurrent", engines, acc, 9, 4)
+    del engines
     torch.cuda.empty_cache()
+    return counts
+
+
+# --------------------------------------------------------------------------
+# Phase: dense (the five attention-only architectures at full width)
+# --------------------------------------------------------------------------
+
+def _dense_cfg(arch, impl="cuda"):
+    from repro_torch.configs import get_config
+    return get_config(arch, attn_impl=impl)
+
+
+@contextlib.contextmanager
+def _peak(label):
+    """Log the card's memory at the start of the block and its peak over
+    it (torch.cuda.max_memory_allocated), which must stay within
+    PEAK_LIMIT_BYTES, and the block's seconds."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"dense {label}: max_memory_allocated {peak / 1e9:.3f} GB (at the "
+        f"start {start / 1e9:.3f} GB; limit {PEAK_LIMIT_BYTES / 1e9:.0f} "
+        f"GB), {time.perf_counter() - t0:.1f} s")
+    require(peak <= PEAK_LIMIT_BYTES, f"dense {label}: peak memory "
+                                      f"{peak / 1e9:.1f} GB")
+
+
+def _log_tree(label, params):
+    from repro_torch.quant.int8 import tree_bytes_quantized
+    torch.cuda.synchronize()
+    log(f"dense {label}: params {tree_bytes_quantized(params) / 1e9:.3f} GB "
+        f"resident")
+
+
+def _dense_gemma2(label, params, rng):
+    """gemma2-9b through the engine at max_seq G2_MAX_SEQ, where its local
+    ring (G2_WINDOW slots) is smaller than max_seq, so the engine refuses
+    backfill as the reference does: the groups of G2_GROUPS (the first
+    past the window: flash masks by window, the ring wraps), the graphs
+    against `models.model` run eagerly on a fresh cache, bit for bit at
+    every step; then the cuda path against the naive path at B = 1 (row
+    0 of each group; the naive (T, T) logits at B = 4 would pass the
+    memory limit), for int8 on the dequantized weights."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = _dense_cfg("gemma2_9b")
+    with torch.no_grad():
+        eng = InferenceEngine(cfg, params, batch_size=B, max_seq=G2_MAX_SEQ)
+        require(eng._maskable and not eng._backfillable,
+                "gemma2_9b: the engine takes masks and refuses backfill")
+        got, fed = _served_groups(eng, G2_GROUPS[:1], rng)
+        # After the first group the local ring holds the window's last
+        # positions, wrapped.
+        pos = eng.cache["blocks"][0]["pos"]
+        last = sum(G2_GROUPS[0]) - 1
+        require(pos.shape[-1] == G2_WINDOW and int(pos.max()) == last
+                and int(pos.min()) == last - G2_WINDOW + 1,
+                f"gemma2_9b {label}: ring positions {int(pos.min())}.."
+                f"{int(pos.max())}")
+        more, fed2 = _served_groups(eng, G2_GROUPS[1:], rng)
+        got, fed, stats = got + more, fed + fed2, eng.stats
+        del eng, pos
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = _eager_groups(cfg, params, fed, G2_MAX_SEQ, masked=True)
+    _bit_equal(f"dense gemma2_9b {label} (full width, max_seq {G2_MAX_SEQ}, "
+               f"groups {G2_GROUPS})", got, want, stats)
+    naive_p = _dequantized(params) if label == "int8" else params
+    before = ops.launch_counts()
+    with torch.no_grad():
+        naive = _eager_groups(_dense_cfg("gemma2_9b", "naive"), naive_p,
+                              [[t[:1] for t in toks] for toks in fed],
+                              G2_MAX_SEQ, masked=True)
+    require(ops.launch_counts() == before,
+            f"gemma2_9b {label}: the naive run launched a kernel")
+    del naive_p
+    torch.cuda.empty_cache()
+    worst = _worst_rel(f"gemma2_9b {label} cuda vs naive",
+                       torch.from_numpy(np.stack([w[:1] for w in want])),
+                       torch.from_numpy(np.stack(naive)))
+    log(f"dense gemma2_9b {label}: cuda (B={B}, row 0) vs naive (B=1)"
+        f"{' (dequantized weights)' if label == 'int8' else ''} over "
+        f"{len(want)} steps of the groups {G2_GROUPS}: max |dlogit|/"
+        f"max|logit| = {worst:.3e} (tol {LOGIT_TOL}); max|logit|="
+        f"{max(float(np.abs(b).max()) for b in naive):.2f}")
+
+
+def _dense_scheduled(label, arch, params, rng):
+    """yi-9b / deepseek-coder-33b through the engine on stablelm's
+    schedule (graphs against eager, bit for bit), then the cuda path
+    against the naive path on the same tree (for int8 the int8 kernel
+    runs on both, so only the attention path differs): a ragged prefill
+    at B x T_PREFILL and 16 teacher-forced decode steps."""
+    cfg = _dense_cfg(arch)
+    _graphs_vs_eager(f"{arch} {label}", params, rng, cfg)
+    lens = np.array([T_PREFILL, 300, 129, 37])
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, T_PREFILL)),
+                           dtype=torch.int32, device="cuda")
+    vf = torch.as_tensor(T_PREFILL - lens, dtype=torch.int32, device="cuda")
+    forced = [torch.as_tensor(f, dtype=torch.int32, device="cuda")
+              for f in rng.integers(0, cfg.vocab, (16, B, 1))]
+    a, b = _cuda_vs_naive(f"{arch} {label}", cfg, params, params, toks, vf,
+                          forced, S_CACHE)
+    worst = _worst_rel(f"{arch} {label} cuda vs naive", a, b)
+    log(f"dense {arch} {label}: prefill B={B} T={T_PREFILL} lengths="
+        f"{lens.tolist()} + 16 decode steps, cuda vs naive attention (the "
+        f"same tree): max |dlogit|/max|logit| = {worst:.3e} over 17 steps "
+        f"(tol {LOGIT_TOL}); max|logit|={float(b.abs().max()):.2f}")
+
+
+def _dense_embedded(label, arch, params, gen):
+    """musicgen-large / chameleon-34b, model-level (the engine feeds
+    tokens only, as the reference's): frame or patch embeddings drawn
+    from the seed, a prefill at EMBED_T and EMBED_STEPS teacher-forced
+    decode steps, each against one forward over the whole sequence
+    (tests/test_decode.py:68), and the cuda path against the naive path
+    on the same tree."""
+    from repro_torch.models.model import forward
+    cfg = _dense_cfg(arch)
+    x = torch.randn((B, EMBED_T + EMBED_STEPS, cfg.d_model), generator=gen,
+                    device="cuda")
+    forced = [x[:, EMBED_T + s:EMBED_T + s + 1] for s in range(EMBED_STEPS)]
+    a, b = _cuda_vs_naive(f"{arch} {label}", cfg, params, params,
+                          x[:, :EMBED_T], None, forced, S_CACHE)
+    with torch.no_grad():
+        full = forward(params, x, cfg)[0][:, EMBED_T - 1:].transpose(0, 1)
+    fwd = _worst_rel(f"{arch} {label} decode vs forward", a, full)
+    worst = _worst_rel(f"{arch} {label} cuda vs naive", a, b)
+    log(f"dense {arch} {label}: embeddings in, prefill B={B} T={EMBED_T} + "
+        f"{EMBED_STEPS} teacher-forced decode steps: vs one forward over "
+        f"the sequence max |dlogit|/max|logit| = {fwd:.3e}, cuda vs naive "
+        f"attention (the same tree) {worst:.3e} (tol {LOGIT_TOL}); "
+        f"max|logit|={float(b.abs().max()):.2f}")
+
+
+def phase_dense():
+    """The five attention-only architectures at published width and
+    depth, one model at a time, each freed before the next (its peak
+    memory logged and held under PEAK_LIMIT_BYTES): gemma2-9b fp32 and
+    its int8 execution tree (`quantize_exec_tree`), yi-9b fp32, then the
+    int8 trees of the two 34 B models built group by group
+    (`tree_by_group`: their fp32 trees never fit the card):
+    deepseek-coder-33b int8 through the engine, musicgen-large fp32 and
+    chameleon-34b int8 model-level."""
+    from repro_torch.models import init_params
+    from repro_torch.quant.int8 import quantize_exec_tree
+    rng = np.random.default_rng(6)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    with _peak("gemma2_9b fp32"):
+        p32 = init_params(_dense_cfg("gemma2_9b"), seed=0)
+        _log_tree("gemma2_9b fp32", p32)
+        _dense_gemma2("fp32", p32, rng)
+    with _peak("gemma2_9b int8"):
+        p8 = quantize_exec_tree(p32)
+        del p32     # the int8 tree keeps the embeddings and norms
+        _log_tree("gemma2_9b int8", p8)
+        _dense_gemma2("int8", p8, rng)
+        del p8
+    for arch, label in (("yi_9b", "fp32"), ("deepseek_coder_33b", "int8"),
+                        ("musicgen_large", "fp32"), ("chameleon_34b", "int8")):
+        with _peak(f"{arch} {label}"):
+            cfg = _dense_cfg(arch)
+            p = init_params(cfg, seed=0) if label == "fp32" else \
+                tree_by_group(cfg, seed=0)
+            _log_tree(f"{arch} {label}", p)
+            if cfg.input_mode == "embeddings":
+                _dense_embedded(label, arch, p, gen)
+            else:
+                _dense_scheduled(label, arch, p, rng)
+            del p
+
+
+def phase_serve_dense():
+    """gemma2-9b int8 and yi-9b int8 (each built group by group from seed
+    1) behind CNNSelectServer at max_seq S_CACHE. Returns the path's
+    launch counts."""
+    from repro_torch.serving.engine import InferenceEngine
+    engines = {}
+    with _peak("serve"):
+        for name, arch in (("gemma2_int8", "gemma2_9b"),
+                           ("yi_int8", "yi_9b")):
+            cfg = _dense_cfg(arch)
+            engines[name] = InferenceEngine(cfg, tree_by_group(cfg, seed=1),
+                                            batch_size=B, max_seq=S_CACHE)
+        # Offline task scores of the candidates (set here, as the
+        # launcher sets its tiers).
+        counts = _serve_candidates("dense", engines,
+                                   {"gemma2_int8": 0.76, "yi_int8": 0.75},
+                                   8, 7)
+        del engines
     return counts
 
 
@@ -1680,88 +2244,116 @@ def _mixer_ms(fn, steps):
 RPROFILE_STEPS = 16
 
 
-def phase_profile_recurrent(params):
-    """Where the time of a full-width decode step and prefill (B = RG_B,
-    prompt RG_T[0]) of each recurrent candidate goes, through the
-    engine's graphs and through `models.model` called eagerly: wall and
-    device timeline (CUDA events), then torch.profiler's device kernel
-    time, launches and idle share, the shares of decode_attention,
-    flash_attention and int8_matmul, and (eager calls, profiler ranges)
-    the device time of the plain-torch RG-LRU and SSD functions."""
+def _profile_engine(tag, name, cfg, p, T, max_seq, masked=False):
+    """Where the time of a full-width decode step and prefill (batch
+    RG_B, prompt T) of one candidate goes, through the engine's graphs
+    and through `models.model` called eagerly (masked: with valid_from =
+    0, as the engine runs an attention-only pattern): wall and device
+    timeline (CUDA events), then torch.profiler's device kernel time,
+    launches and idle share, and the shares of the three kernels.
+    Returns the eager decode step's and prefill's callables."""
     from repro_torch.models.model import decode_step, prefill
     from repro_torch.serving.engine import InferenceEngine
     rng = np.random.default_rng(5)
-    T = RG_T[0]
     kernels = ("decode_attention", "flash_attention", "int8_matmul")
+    eng = InferenceEngine(cfg, p, batch_size=RG_B, max_seq=max_seq,
+                          device="cuda")
+    prompts = rng.integers(0, cfg.vocab, (RG_B, T)).astype(np.int32)
+    toks = torch.tensor(prompts, device="cuda")
+    vf = torch.zeros((RG_B,), dtype=torch.int32, device="cuda") \
+        if masked else None
+
+    def graph_group():
+        nxt = eng.run_prefill(prompts).argmax(-1).astype(np.int32)
+        return lambda: eng.run_decode(nxt[:, None])
+
+    def eager_group():
+        lg, cache = prefill(p, toks, cfg, max_seq, logits_last_only=True,
+                            valid_from=vf)
+        nxt = lg[:, 0].cpu().numpy().argmax(-1).astype(np.int32)[:, None]
+        pos = itertools.count(T)
+
+        def step():
+            lg, _ = decode_step(p, torch.tensor(nxt, device="cuda"),
+                                cache, next(pos), cfg, valid_from=vf)
+            return lg[:, 0].cpu().numpy()
+        return step
+    prefills = {
+        "graph": lambda: eng.run_prefill(prompts),
+        "eager": lambda: prefill(p, toks, cfg, max_seq,
+                                 logits_last_only=True, valid_from=vf)[0][
+            :, 0].cpu().numpy()}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        eng.warmup(T)
+        log(f"{tag} {name} warm-up and capture at T={T}: "
+            f"{time.perf_counter() - t0:.3f} s")
+        for mode, group in (("graph", graph_group), ("eager", eager_group)):
+            wall, span = _timed(group(), RPROFILE_STEPS)
+            log(f"{tag} {name} decode {mode} B={RG_B} context {T}-"
+                f"{T + RPROFILE_STEPS - 1}: wall {wall:.4f} ms/step, "
+                f"device timeline {span:.4f} ms/step")
+            wall, dev, n_k, ev = _profiled(group(), 8)
+            log(f"{tag} {name} decode step {mode} (profiler): wall "
+                f"{wall:.3f} ms, device kernels {dev:.3f} ms ({n_k:.0f} "
+                f"launches), "
+                + ", ".join("%s %.3f ms (%.0f launches)"
+                            % (k, *_share(ev, k, 8)) for k in kernels)
+                + f", device idle share {1 - dev / wall:.3f}")
+            _log_top(f"{name} decode {mode}", ev, 8, 6)
+        for mode, fn in prefills.items():
+            fn()
+            wall, span = _timed(fn, 3)
+            log(f"{tag} {name} prefill {mode} B={RG_B} T={T}: wall "
+                f"{wall:.4f} ms, device timeline {span:.4f} ms (3 calls)")
+            wall, dev, n_k, ev = _profiled(fn, 2)
+            log(f"{tag} {name} prefill {mode} (profiler): wall "
+                f"{wall:.3f} ms, device kernels {dev:.3f} ms ({n_k:.0f} "
+                f"launches), "
+                + ", ".join("%s %.3f ms (%.0f launches)"
+                            % (k, *_share(ev, k, 2)) for k in kernels)
+                + f", device idle share {1 - dev / wall:.3f}")
+            _log_top(f"{name} prefill {mode}", ev, 2, 6)
+    del eng
+    torch.cuda.empty_cache()
+    return eager_group, prefills["eager"]
+
+
+def phase_profile_recurrent(params):
+    """Each recurrent candidate's steps (`_profile_engine`, prompt
+    RG_T[0]), and (eager calls, profiler ranges) the device time of the
+    plain-torch RG-LRU and SSD functions."""
+    T = RG_T[0]
     for name, p in params.items():
-        cfg = _cfg(name)
-        eng = InferenceEngine(cfg, p, batch_size=RG_B, max_seq=RG_MAX_SEQ,
-                              device="cuda")
-        prompts = rng.integers(0, cfg.vocab, (RG_B, T)).astype(np.int32)
-        toks = torch.tensor(prompts, device="cuda")
-
-        def graph_group():
-            nxt = eng.run_prefill(prompts).argmax(-1).astype(np.int32)
-            return lambda: eng.run_decode(nxt[:, None])
-
-        def eager_group():
-            lg, cache = prefill(p, toks, cfg, RG_MAX_SEQ,
-                                logits_last_only=True)
-            nxt = lg[:, 0].cpu().numpy().argmax(-1).astype(np.int32)[:, None]
-            pos = itertools.count(T)
-
-            def step():
-                lg, _ = decode_step(p, torch.tensor(nxt, device="cuda"),
-                                    cache, next(pos), cfg)
-                return lg[:, 0].cpu().numpy()
-            return step
-        prefills = {
-            "graph": lambda: eng.run_prefill(prompts),
-            "eager": lambda: prefill(p, toks, cfg, RG_MAX_SEQ,
-                                     logits_last_only=True)[0][:, 0]
-            .cpu().numpy()}
+        eager_group, eager_prefill = _profile_engine(
+            "rprofile", name, _cfg(name), p, T, RG_MAX_SEQ)
         with torch.no_grad():
-            t0 = time.perf_counter()
-            eng.warmup(T)
-            log(f"rprofile {name} warm-up and capture at T={T}: "
-                f"{time.perf_counter() - t0:.3f} s")
-            for mode, group in (("graph", graph_group),
-                                ("eager", eager_group)):
-                wall, span = _timed(group(), RPROFILE_STEPS)
-                log(f"rprofile {name} decode {mode} B={RG_B} context {T}-"
-                    f"{T + RPROFILE_STEPS - 1}: wall {wall:.4f} ms/step, "
-                    f"device timeline {span:.4f} ms/step")
-                wall, dev, n_k, ev = _profiled(group(), 8)
-                log(f"rprofile {name} decode step {mode} (profiler): wall "
-                    f"{wall:.3f} ms, device kernels {dev:.3f} ms ({n_k:.0f} "
-                    f"launches), "
-                    + ", ".join("%s %.3f ms (%.0f launches)"
-                                % (k, *_share(ev, k, 8)) for k in kernels)
-                    + f", device idle share {1 - dev / wall:.3f}")
-                _log_top(f"{name} decode {mode}", ev, 8, 6)
-            for mode, fn in prefills.items():
-                fn()
-                wall, span = _timed(fn, 3)
-                log(f"rprofile {name} prefill {mode} B={RG_B} T={T}: wall "
-                    f"{wall:.4f} ms, device timeline {span:.4f} ms (3 calls)")
-                wall, dev, n_k, ev = _profiled(fn, 2)
-                log(f"rprofile {name} prefill {mode} (profiler): wall "
-                    f"{wall:.3f} ms, device kernels {dev:.3f} ms ({n_k:.0f} "
-                    f"launches), "
-                    + ", ".join("%s %.3f ms (%.0f launches)"
-                                % (k, *_share(ev, k, 2)) for k in kernels)
-                    + f", device idle share {1 - dev / wall:.3f}")
-                _log_top(f"{name} prefill {mode}", ev, 2, 6)
             ranges, dev = _mixer_ms(eager_group(), 8)
             log(f"rprofile {name} decode step eager, plain-torch mixer "
                 f"functions: {json.dumps(ranges)} ms/step of {dev:.3f} ms "
                 f"device kernels")
-            ranges, dev = _mixer_ms(prefills["eager"], 2)
+            ranges, dev = _mixer_ms(eager_prefill, 2)
             log(f"rprofile {name} prefill eager T={T}, plain-torch mixer "
                 f"functions: {json.dumps(ranges)} ms/call of {dev:.3f} ms "
                 f"device kernels")
-        del eng
         torch.cuda.empty_cache()
+
+
+def phase_profile_dense():
+    """Each dense engine candidate's steps (`_profile_engine`, batch
+    RG_B, prompt T_PREFILL, max_seq S_CACHE), one model at a time:
+    gemma2-9b fp32 and int8, yi-9b fp32, deepseek-coder-33b int8 (the
+    int8 trees built group by group from seed 0)."""
+    from repro_torch.models import init_params
+    for arch, label in (("gemma2_9b", "fp32"), ("gemma2_9b", "int8"),
+                        ("yi_9b", "fp32"), ("deepseek_coder_33b", "int8")):
+        with _peak(f"profile {arch} {label}"):
+            cfg = _dense_cfg(arch)
+            p = init_params(cfg, seed=0) if label == "fp32" else \
+                tree_by_group(cfg, seed=0)
+            _profile_engine("dprofile", f"{arch}_{label}", cfg, p, T_PREFILL,
+                            S_CACHE, masked=True)
+            del p
 
 
 # --------------------------------------------------------------------------
@@ -1776,12 +2368,17 @@ TUNE_VARIANTS = {
     "128x128 always": ("-DPF_FORCE_TILE=128",),
     "64x64 always": ("-DPF_FORCE_TILE=64",),
 }
+# The dense models' w_down (K, N), the longest sums, timed at the M of
+# chameleon-34b's prefill beside stablelm's projections.
+TUNE_DENSE_KN = ((22016, 8192), (19200, 7168), (14336, 3584), (11008, 4096))
 
 
 def phase_tune():
     """Device time of each prefill variant (fp32 x) at the full-width
-    projections and the M of backfill (100) and prefill (B * T), with
-    the weight hot and cold in L2."""
+    projections and the M of backfill (100) and prefill (B * T), and at
+    the dense models' w_down, with the weight hot and cold in L2; and
+    each variant's largest error against a float64 product, relative to
+    max|ref|."""
     import ctypes
     from repro_torch.kernels import _build, ref as R
     from repro_torch.kernels.int8_matmul import _ARGTYPES
@@ -1794,31 +2391,36 @@ def phase_tune():
         fns[name].restype = ctypes.c_int
     gen = torch.Generator(device="cuda").manual_seed(3)
     stream = torch.cuda.current_stream().cuda_stream
-    for M in (100, B * T_SERVE, 800, B * T_PREFILL):
-        for K, N in PROJ_KN:
-            x = _randn(gen, (M, K), torch.float32)
-            wq = torch.randint(-127, 128, (K, N), generator=gen,
-                               device="cuda", dtype=torch.int8)
-            sc = torch.rand((N,), generator=gen, device="cuda") * 1e-3
-            out = torch.empty((M, N), device="cuda")
-            args = (x.data_ptr(), wq.data_ptr(), sc.data_ptr(),
-                    out.data_ptr(), M, N, K, K, 0, stream)
-            ref = R.int8_matmul_ref(x, wq, sc)
-            tol = INT8_TOL[torch.float32] * float(ref.abs().max())
-            cold = copies(wq)   # a model's prefill reads each weight cold
-            ms = {"hot": {}, "cold": {}}
-            for name, fn in fns.items():
-                require(fn(*args) == 0, f"tune launch {name}")
-                torch.cuda.synchronize()
-                require(float((out - ref).abs().max()) <= tol,
-                        f"tune {name} M={M} K={K} N={N} disagrees")
-                ms["hot"][name] = bench_ms(lambda: fn(*args))
-                ms["cold"][name] = bench_cold_ms(
-                    lambda w: fn(args[0], w.data_ptr(), *args[2:]), cold)
-            del cold
-            torch.cuda.empty_cache()
-            log(f"tune int8 prefill M={M} K={K} N={N} fp32 ms: "
-                f"{json.dumps(ms)}")
+    shapes = ([(M, K, N) for M in (100, B * T_SERVE, 800, B * T_PREFILL)
+               for K, N in PROJ_KN]
+              + [(B * EMBED_T, K, N) for K, N in TUNE_DENSE_KN])
+    for M, K, N in shapes:
+        x = _randn(gen, (M, K), torch.float32)
+        wq = torch.randint(-127, 128, (K, N), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        sc = torch.rand((N,), generator=gen, device="cuda") * 1e-3
+        out = torch.empty((M, N), device="cuda")
+        args = (x.data_ptr(), wq.data_ptr(), sc.data_ptr(),
+                out.data_ptr(), M, N, K, K, 0, stream)
+        ref = R.int8_matmul_ref(x, wq, sc)
+        tol = INT8_TOL[torch.float32] * float(ref.abs().max())
+        exact = (x.double() @ (wq.double() * sc.double())).float()
+        cold = copies(wq)   # a model's prefill reads each weight cold
+        ms = {"hot": {}, "cold": {}, "rel_err_vs_float64": {}}
+        for name, fn in fns.items():
+            require(fn(*args) == 0, f"tune launch {name}")
+            torch.cuda.synchronize()
+            require(float((out - ref).abs().max()) <= tol,
+                    f"tune {name} M={M} K={K} N={N} disagrees")
+            ms["rel_err_vs_float64"][name] = float(
+                (out - exact).abs().max() / exact.abs().max())
+            ms["hot"][name] = bench_ms(lambda: fn(*args))
+            ms["cold"][name] = bench_cold_ms(
+                lambda w: fn(args[0], w.data_ptr(), *args[2:]), cold)
+        del cold, exact
+        torch.cuda.empty_cache()
+        log(f"tune int8 prefill M={M} K={K} N={N} fp32 ms: "
+            f"{json.dumps(ms)}")
 
 
 def main(argv=None):
@@ -1852,7 +2454,7 @@ def main(argv=None):
         phase_kernels(results)
     if "tune" in phases:
         phase_tune()
-    counts = rcounts = None
+    counts = rcounts = dcounts = None
     if {"model", "serve", "profile"} & set(phases):
         p32, p8 = _build_params()
         if "model" in phases:
@@ -1872,6 +2474,11 @@ def main(argv=None):
             phase_profile_recurrent(rparams)
         del rparams
         torch.cuda.empty_cache()
+    if "dense" in phases:
+        phase_dense()
+        dcounts = phase_serve_dense()
+    if "profile_dense" in phases:
+        phase_profile_dense()
     log(f"card: {card}; wall {time.perf_counter() - t0:.1f} s")
     if results:
         kernels = []
@@ -1887,13 +2494,17 @@ def main(argv=None):
                 # mamba2-2.7b behind CNNSelectServer).
                 launches_recurrent=None if rcounts is None
                 else rcounts[name],
+                # The dense path's own run (gemma2-9b int8 and yi-9b int8
+                # behind CNNSelectServer).
+                launches_dense=None if dcounts is None else dcounts[name],
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
                 pins=r["pins"],
                 **{k: r[k] for k in ("bound_fp32_cores_ms", "cold_ms",
                                      "library_cold_ms", "plan", "small_m",
-                                     "prefill", "recurrentgemma", "rows")
+                                     "prefill", "recurrentgemma", "dense",
+                                     "rows")
                    if k in r},
                 shape=r["shape"]))
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,12 +2,9 @@
 exact published hyper-parameters; `reduced_config(name)` scales a family
 down for CPU tests (same block pattern, tiny dims).
 
-The attention-only stablelm family and the two recurrent families
-(recurrentgemma: RG-LRU + local attention; mamba2: SSD) run on this
-package so far; the other architectures need the MoE module (qwen3,
-grok) or have not been held against the reference yet (musicgen,
-gemma2, yi, deepseek, chameleon), and are named here so `get_config`
-can say so."""
+Every architecture runs on this package but the two MoE ones (qwen3,
+grok), which need the MoE module of a later slice of the port; they
+are named here so `get_config` can say so."""
 
 from __future__ import annotations
 
@@ -28,7 +25,9 @@ ARCH_IDS = [
 ]
 
 # Architectures whose modules are ported.
-PORTED = ("stablelm_1_6b", "recurrentgemma_2b", "mamba2_2_7b")
+PORTED = ("musicgen_large", "stablelm_1_6b", "gemma2_9b", "yi_9b",
+          "deepseek_coder_33b", "recurrentgemma_2b", "chameleon_34b",
+          "mamba2_2_7b")
 
 # Canonical external ids (assignment spelling) -> module names.
 ALIASES = {
@@ -56,9 +55,8 @@ def get_config(name: str, **runtime):
     name = resolve(name)
     if name not in PORTED:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet: it needs the MoE module "
-            f"or a model-level check of a later slice of the port "
-            f"(ported: {', '.join(PORTED)})")
+            f"arch {name!r} is not ported yet: it needs the MoE module, "
+            f"a later slice of the port (ported: {', '.join(PORTED)})")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     cfg = mod.make_config()
     return cfg.with_runtime(**runtime) if runtime else cfg

@@ -25,9 +25,11 @@
 // accumulators. Emulated on the CPU against the JAX reference
 // (tests/test_torch_kernels.py), one part alone misses the 1e-4 of
 // max|C| that the fp32 checks hold this kernel to, and two parts meet
-// it; on the card, whose tensor cores add their own rounding to the fp32
-// sums, two parts measure up to about 1.3e-5 of max|C| at K = 5632
-// (PERF.md).
+// it. The tensor cores round each mma's fp32 sum toward zero; one chain
+// of mma over K shrank the sums by an error that grew with K (1.3e-5 of
+// max|C| at K = 5632, 1.79e-5 at 7680, 5.3e-5 at 22016 on the card,
+// PERF.md), so each 16 rows of K sum into fresh accumulators, folded into
+// the running sums by IEEE adds (pf_mma below).
 //
 // Design: two paths behind one entry point.
 // - M > SMALL_M (prefill): block tiles of BM x BN outputs (128 x 128 with
@@ -596,10 +598,17 @@ __device__ __forceinline__ void pf_convert(unsigned char* smem, int slot) {
   }
 }
 
+// The tensor cores round an mma's fp32 sum toward zero, not to nearest:
+// a chain of mma into one accumulator shrinks it by up to an ulp of the
+// running sum at each link, an error that grows with K. So each 16 rows
+// of K start from zero accumulators (both x parts chained there: the sum
+// of 16 rows, whose rounding is small beside the running sums) and are
+// added to the running sums by IEEE fp32 adds, which round to nearest.
+//
 // The warp's products over the converted stage: per 16 rows of K, the
 // weight fragments of its NT column tiles (ldmatrix.trans of the k-major
-// tile), then for each x part the fragments of its MT row tiles and
-// MT x NT mma into the same fp32 accumulators.
+// tile), then per row tile the x parts' fragments and NT mma of both
+// parts into fresh accumulators, added to the running sums.
 template <typename T, typename TL>
 __device__ __forceinline__ void pf_mma(const unsigned char* smem,
                                        float (&acc)[TL::MT][TL::NT][4],
@@ -624,20 +633,26 @@ __device__ __forceinline__ void pf_mma(const unsigned char* smem,
       bf[j + 1][0] = r[2];
       bf[j + 1][1] = r[3];
     }
+    // Matrices of a row tile: rows 0-7 and 8-15 at k 0-7, then at k 8-15.
+    const auto a_tile = [&](int p, int i) {
+      return a + p * (S::A_PART / 2) +
+             (wm * TL::WM + i * 16 + (lane & 15)) * S::A_LD + kk +
+             (lane >> 4) * 8;
+    };
 #pragma unroll
-    for (int p = 0; p < S::PARTS; ++p) {
-      // Matrices: rows 0-7 and 8-15 at k 0-7, then at k 8-15.
-      unsigned af[TL::MT][4];
+    for (int i = 0; i < TL::MT; ++i) {
+      unsigned af[S::PARTS][4];
 #pragma unroll
-      for (int i = 0; i < TL::MT; ++i)
-        ldmatrix_x4(af[i], a + p * (S::A_PART / 2) +
-                               (wm * TL::WM + i * 16 + (lane & 15)) * S::A_LD +
-                               kk + (lane >> 4) * 8);
+      for (int p = 0; p < S::PARTS; ++p) ldmatrix_x4(af[p], a_tile(p, i));
 #pragma unroll
-      for (int i = 0; i < TL::MT; ++i)
+      for (int j = 0; j < TL::NT; ++j) {
+        float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-        for (int j = 0; j < TL::NT; ++j)
-          mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
+        for (int p = 0; p < S::PARTS; ++p)
+          mma_bf16(t, af[p], bf[j][0], bf[j][1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+      }
     }
   }
 }

@@ -704,3 +704,102 @@ def test_int8_matmul_recurrentgemma_shapes(cuda, M, K, N, dtype):
     want = R.int8_matmul_ref(x, wq, sc)
     torch.cuda.synchronize()
     _assert_int8_close(out, want, dtype)
+
+
+# The dense architectures as their models run them (src/repro/configs/
+# gemma2_9b.py, deepseek_coder_33b.py, chameleon_34b.py): gemma2-9b's
+# attention is 16 q heads on 8 kv heads at hd 256 with softcap 50, its
+# local layers with window 4096 (decode reads a 4096-slot ring,
+# linear=False), its global layers a linear cache of up to 8192 slots;
+# deepseek-coder-33b pads 56 q heads to 64 on 8 kv heads at hd 128, the
+# heads of chameleon-34b; w_down reaches K = 19200 (deepseek) and 22016
+# (chameleon), gemma2's K = 14336, yi-9b's K = 11008.
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T, window", [(4200, 4096), (4200, 0),
+                                       (1024, 4096)])
+def test_flash_attention_gemma2_model_shapes(cuda, T, window, dtype):
+    q = _randn(cuda, (2, T, 16, 256), dtype)
+    k = _randn(cuda, (2, T, 8, 256), dtype)
+    v = _randn(cuda, (2, T, 8, 256), dtype)
+    vf = torch.tensor([0, 300], dtype=torch.int32, device="cuda")
+    out = ops.flash_attention_btHd(q, k, v, vf, window=window, softcap=50.0)
+    want = R.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), window=window, cap=50.0,
+                                 valid_from=vf).transpose(1, 2)
+    torch.cuda.synchronize()
+    _assert_close(out, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cpos", [1030, 4095, 4096, 4210, 8191])
+def test_decode_attention_gemma2_ring(cuda, cpos, dtype):
+    """The local layers' 4096-slot ring before and after its wrap, with
+    softcap 50."""
+    q, k, v, _ = _decode_case(cuda, 2, 4096, 16, 8, 256, 0, dtype)
+    _decode_check(q, k, v, _ring_pos(4096, cpos), cpos, [0, 0], dtype,
+                  ring=True, window=4096, cap=50.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cpos", [1030, 4210, 8191])
+def test_decode_attention_gemma2_global(cuda, cpos, dtype):
+    """The global layers' linear 8192-slot cache with softcap 50."""
+    q, k, v, pos = _decode_case(cuda, 2, 8192, 16, 8, 256, cpos, dtype)
+    _decode_check(q, k, v, pos, cpos, [0, 700], dtype, cap=50.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T, vf", [(64, [0, 47, 14, 63]),
+                                   (512, None), (512, [0, 212, 383, 475])])
+def test_flash_attention_64_8_128(cuda, T, vf, dtype):
+    q = _randn(cuda, (4, T, 64, 128), dtype)
+    k = _randn(cuda, (4, T, 8, 128), dtype)
+    v = _randn(cuda, (4, T, 8, 128), dtype)
+    vft = None if vf is None else torch.tensor(vf, dtype=torch.int32,
+                                              device="cuda")
+    out = ops.flash_attention_btHd(q, k, v, vft)
+    want = R.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2),
+                                 valid_from=vft).transpose(1, 2)
+    torch.cuda.synchronize()
+    _assert_close(out, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cpos, vf, ring", [(100, [0, 47, 14, 63], False),
+                                            (520, None, False),
+                                            (700, [0, 37, 300, 701], True)])
+def test_decode_attention_64_8_128(cuda, cpos, vf, ring, dtype):
+    q, k, v, pos = _decode_case(cuda, 4, 1024, 64, 8, 128, cpos, dtype,
+                                ring)
+    _decode_check(q, k, v, pos, cpos, vf, dtype, ring)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K, N", [(22016, 8192), (19200, 7168),
+                                  (14336, 3584), (11008, 4096)])
+@pytest.mark.parametrize("M", [4, 2048])
+def test_int8_matmul_dense_w_down(cuda, M, K, N, dtype):
+    """The dense models' w_down, the int8 path's longest sums, at a decode
+    M and a prefill M: within 1e-4 (fp32) of max|ref|."""
+    x, wq, sc = _int8_case(cuda, M, K, N, dtype)
+    out = ops.int8_matmul(x, wq, sc)
+    want = R.int8_matmul_ref(x, wq, sc)
+    torch.cuda.synchronize()
+    _assert_int8_close(out, want, dtype)
+
+
+@pytest.mark.parametrize("K, N", [(22016, 8192), (19200, 7168)])
+def test_int8_prefill_long_k_vs_float64(cuda, K, N):
+    """The prefill path's longest sums (chameleon-34b's and
+    deepseek-coder-33b's w_down, M = 2048, fp32 x) within 1e-5 of
+    max|float64 product|. The tensor cores round each mma's sum toward
+    zero: one mma chain over K measured 5.3e-5 at K = 22016, fresh sums
+    a 16 rows of K at most 2.9e-6 at every K (PERF.md)."""
+    x, wq, sc = _int8_case(cuda, 2048, K, N, torch.float32)
+    out = ops.int8_matmul(x, wq, sc)
+    exact = x.double() @ (wq.double() * sc.double())
+    torch.cuda.synchronize()
+    rel = float((out.double() - exact).abs().max() / exact.abs().max())
+    assert rel <= 1e-5, rel

@@ -23,7 +23,10 @@ COPIED = ["core/registry.py", "core/selection.py", "core/profiles.py",
           "serving/metrics.py", "serving/network.py", "serving/fleet.py",
           "serving/control.py", "serving/router.py", "serving/stack.py",
           "serving/server.py", "serving/loop.py", "configs/stablelm_1_6b.py",
-          "configs/recurrentgemma_2b.py", "configs/mamba2_2_7b.py"]
+          "configs/recurrentgemma_2b.py", "configs/mamba2_2_7b.py",
+          "configs/gemma2_9b.py", "configs/yi_9b.py",
+          "configs/deepseek_coder_33b.py", "configs/musicgen_large.py",
+          "configs/chameleon_34b.py"]
 # ... except these, which the port rewrites in torch (selection.py).
 REWRITTEN = {"cnnselect_batch", "_BATCH_JIT", "_jit_cnnselect_batch",
              "CNNSelectPolicy.select_batch", "CNNSelectPolicy.__doc__"}
@@ -147,8 +150,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
 def test_get_config_names_the_later_slice():
     from repro_torch.configs import get_config
     assert get_config("stablelm-1.6b").d_model == 2048
-    with pytest.raises(NotImplementedError, match="later slice"):
-        get_config("gemma2_9b")
+    for arch in ("qwen3_moe_235b", "grok_1_314b"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            get_config(arch)
 
 
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
