@@ -73,9 +73,24 @@ Phases (each prints its results, one line each):
            model-level with embeddings in: a prefill at T = 512 and 16
            teacher-forced steps against one forward and cuda against
            naive. The 34 B int8 trees are built one scan group at a time
-           (tree_by_group). Then the dense path: CNNSelectServer over
-           gemma2-9b int8 and yi-9b int8, whose graph replays must
-           launch every kernel
+           (tree_by_group). gemma2-9b fp32's T = 4200 prefill (B = 1)
+           also runs under attn_impl "auto", which takes the chunked
+           attention there, against the flash path. Then the dense path:
+           CNNSelectServer over gemma2-9b int8 and yi-9b int8, whose graph
+           replays must launch every kernel
+  train    the training path (src/repro_torch/launch/train.py) at
+           full width and depth: stablelm-1.6b fp32 under
+           mixed_precision(adamw(cosine)), as the launcher builds it, 20
+           steps at its default B = 8, T = 64 with lr 1e-3 on the Markov
+           task (loss finite and falling; ms/step by CUDA events,
+           tokens/s, peak memory), a checkpoint after step 10 restored
+           into a fresh state whose step 11 must give the uninterrupted
+           one's; one step at B = 1, T = 4608 under remat="block" with
+           "auto" (chunked) attention and again with naive attention
+           (loss, ms, peak memory of each); at 2 layers of full width,
+           fp32 loss and grads against float64 and remat="block"
+           against "none"; the launcher's CLI for 2 steps. No kernel
+           launches here (the kernels have no backward)
   profile  (only when asked for) where the time of a full-width decode
            step and of a full-width prefill (T = 64 and 512) goes,
            through the engine's graphs and through models.model called
@@ -92,6 +107,11 @@ Phases (each prints its results, one line each):
            (only when asked for) the same for each dense engine
            candidate (gemma2-9b fp32 and int8, yi-9b fp32,
            deepseek-coder-33b int8; B = 4, prompt 512, max_seq 1024)
+  profile_train
+           (only when asked for) where a full-width train step's time
+           goes (the train phase's model and batch): the whole step and
+           its loss and grads alone, wall and device time, launches, the
+           kernels that take the most
   tune     (only when asked for) the prefill int8 path's variants side
            by side: the source as it is, each tile's ring 2 <-> 3 stages
            deep, each tile forced, built from csrc/int8_matmul.cu with
@@ -114,6 +134,7 @@ import gc
 import itertools
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -123,8 +144,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "model", "serve", "recurrent", "dense")
-EXTRA_PHASES = ("profile", "profile_recurrent", "profile_dense", "tune")
+PHASES = ("build", "kernels", "model", "serve", "recurrent", "dense",
+          "train")
+EXTRA_PHASES = ("profile", "profile_recurrent", "profile_dense",
+                "profile_train", "tune")
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth; fp32 on the
 # CUDA cores, where decode attention and the decode int8 path compute;
@@ -200,6 +223,9 @@ INT8_SHAPES = ([(M, K, N) for M in INT8_M for K, N in PROJ_KN]
 # steps, model-level.
 G2_MAX_SEQ, G2_WINDOW, G2_CAP = 8192, 4096, 50.0
 G2_GROUPS = ((4200, 24), (1024, 8))
+# The row start of the fp32 prefill under attn_impl "auto" (chunked):
+# past the first 512-key chunk, which is skipped.
+G2_AUTO_VF = 600
 EMBED_T, EMBED_STEPS = 512, 16
 # The card's memory the dense phase may take at its peak, per model.
 PEAK_LIMIT_BYTES = 75e9
@@ -214,6 +240,28 @@ INT8_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # K up to 22016, one mma chain over K 5.3e-5 there (PERF.md).
 INT8_PREFILL_F64_TOL = 1e-5
 LOGIT_TOL = 1e-4
+# The train phase: TRAIN_STEPS launcher steps at its defaults (B=8,
+# T=64) but lr TRAIN_LR on the Markov task, a checkpoint after
+# TRAIN_CKPT_STEP; one step at B=1, T=LONG_T (4608² > 4096²: "auto" takes
+# chunked attention) under remat="block". The launcher's default lr,
+# 3e-3, barely moves the full-width loss in 20 steps (12.06 to a last-5
+# mean of 11.97); 1e-3 brings it to 11.72 (PERF.md).
+TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_LR, LONG_T = 20, 10, 1e-3, 4608
+# fp32 against float64 (2 layers at full width): the loss within
+# LOSS64_RTOL relative, each grad leaf within GRAD64_TOL of its
+# max|float64 grad| (the CPU tests' limit against the reference). The
+# long step's chunked and naive losses within LOSS64_RTOL too.
+LOSS64_RTOL, GRAD64_TOL = 1e-5, 1e-4
+# remat="block" against "none": the loss bit for bit (the forward is
+# the same), each grad leaf within REMAT_TOL of its max|grad|.
+REMAT_TOL = 1e-6
+# The resumed step against the uninterrupted one (the restored state is
+# the saved one bit for bit): the loss within RESUME_LOSS_RTOL, each
+# param within RESUME_TOL. Adam moves an element by up to about lr
+# whatever its gradient's size, so a gradient summed in another order
+# (the embedding backward's) can move it by a fraction of lr (the CPU
+# tests measure 0.0146 lr between the port and the reference).
+RESUME_LOSS_RTOL, RESUME_TOL = 1e-6, 0.05 * TRAIN_LR
 
 KERNEL_META = {
     "flash_attention": dict(
@@ -285,6 +333,11 @@ def bound(nbytes, flops, dtype, peaks=PEAK_FLOPS):
     tb = nbytes / PEAK_BYTES_S * 1e3
     tf = flops / peaks[dtype] * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _events():
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
 
 
 # --------------------------------------------------------------------------
@@ -1915,6 +1968,42 @@ def _dense_gemma2(label, params, rng):
         f"{len(want)} steps of the groups {G2_GROUPS}: max |dlogit|/"
         f"max|logit| = {worst:.3e} (tol {LOGIT_TOL}); max|logit|="
         f"{max(float(np.abs(b).max()) for b in naive):.2f}")
+    if label == "fp32":
+        _g2_auto_vs_flash(params, rng)
+
+
+def _g2_auto_vs_flash(params, rng):
+    """gemma2-9b's prefill at T = G2_GROUPS[0][0] (B = 1, its row
+    starting at G2_AUTO_VF, so the first key chunk lies below it and is
+    skipped) under attn_impl "auto", which takes the chunked attention
+    there (T² > 4096²), against the "cuda" flash path: every position's
+    logits within LOGIT_TOL of max|logit|. Each path is timed once (CUDA
+    events around the prefill)."""
+    from repro_torch.models.model import prefill
+    T = G2_GROUPS[0][0]
+    cfgs = {impl: _dense_cfg("gemma2_9b", impl) for impl in ("auto", "cuda")}
+    toks = torch.as_tensor(rng.integers(0, cfgs["auto"].vocab, (1, T)),
+                           dtype=torch.int32, device="cuda")
+    vf = torch.tensor([G2_AUTO_VF], dtype=torch.int32, device="cuda")
+    out, ms = {}, {}
+    for impl, cfg in cfgs.items():
+        e0, e1 = _events()
+        with torch.no_grad():
+            e0.record()
+            logits, cache = prefill(params, toks, cfg, G2_MAX_SEQ,
+                                    valid_from=vf)
+            e1.record()
+        torch.cuda.synchronize()
+        del cache
+        out[impl], ms[impl] = logits, e0.elapsed_time(e1)
+    worst = _worst_rel("gemma2_9b auto (chunked) vs cuda (flash)",
+                       out["auto"], out["cuda"])
+    log(f"dense gemma2_9b fp32: prefill B=1 T={T} valid_from "
+        f"[{G2_AUTO_VF}] at max_seq {G2_MAX_SEQ}, attn_impl auto (chunked, "
+        f"chunk {cfgs['auto'].attn_chunk}) vs cuda (flash): max |dlogit|/"
+        f"max|logit| = {worst:.3e} (tol {LOGIT_TOL}); prefill ms (CUDA "
+        f"events, one call each) auto {ms['auto']:.1f}, cuda "
+        f"{ms['cuda']:.1f}")
 
 
 def _dense_scheduled(label, arch, params, rng):
@@ -2024,6 +2113,250 @@ def phase_serve_dense():
 
 
 # --------------------------------------------------------------------------
+# Phase: train (the training path at full width)
+# --------------------------------------------------------------------------
+
+def _to_card(d):
+    return {k: torch.as_tensor(v, device="cuda") for k, v in d.items()}
+
+
+def _leaf_worst(a_tree, b_tree):
+    """Over the leaves: the largest max|a - b| / max|b| and max|a - b|
+    (in float64), and whether every leaf is equal bit for bit."""
+    from repro_torch.models.params import tree_leaves_sorted
+    rel, diff, same = 0.0, 0.0, True
+    for a, b in zip(tree_leaves_sorted(a_tree), tree_leaves_sorted(b_tree)):
+        b = b.to(a.device)
+        same = same and torch.equal(a, b.to(a.dtype))
+        d = float((a.double() - b.double()).abs().max())
+        rel = max(rel, d / max(float(b.abs().max()), 1e-30))
+        diff = max(diff, d)
+    return rel, diff, same
+
+
+def _train_full(step_fn, cfg, opt, args):
+    """TRAIN_STEPS launcher steps of full-width stablelm-1.6b (B x T of
+    the launcher's defaults, the Markov task), each timed with CUDA
+    events; a checkpoint after step TRAIN_CKPT_STEP, restored into a
+    fresh ("meta") state as the launcher resumes, whose next step must
+    give the uninterrupted run's loss and params. Returns the state after
+    the resumed step."""
+    from repro_torch.data import DataIterator, MarkovLMTask
+    from repro_torch.models.params import tree_map
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.step import init_train_state
+    it = DataIterator(MarkovLMTask(vocab=cfg.vocab), batch=args.batch,
+                      seq=args.seq)
+    # Drawn before the run: the Markov sampler's host time is not a step's.
+    batches = [_to_card(next(it)) for _ in range(TRAIN_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, opt, seed=0)
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    ck = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    mgr = CheckpointManager(str(ck), keep_n=1, save_interval=TRAIN_CKPT_STEP)
+    losses, ms, after = [], [], None
+    for b in batches:
+        e0, e1 = _events()
+        e0.record()
+        state, m = step_fn(state, b)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(float(m["loss"]))
+        s = int(state["step"])
+        if s == TRAIN_CKPT_STEP:
+            t0 = time.perf_counter()
+            mgr.save(state, s)
+            save_s = time.perf_counter() - t0
+        elif s == TRAIN_CKPT_STEP + 1:
+            after = (m["loss"].clone(),
+                     tree_map(lambda t: t.cpu(), state["params"]))
+    peak = torch.cuda.max_memory_allocated()
+    tokens = args.batch * args.seq
+    warm = sorted(ms[1:])
+    med = warm[len(warm) // 2]
+    log(f"train stablelm_1_6b full width ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, V {cfg.vocab}) fp32, mixed_precision(adamw("
+        f"cosine lr {args.lr})), B={args.batch} T={args.seq} Markov: "
+        f"{TRAIN_STEPS} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(last 5 mean {np.mean(losses[-5:]):.4f}); ms/step (CUDA events) "
+        f"first {ms[0]:.3f}, median of the rest {med:.4f} (min "
+        f"{warm[0]:.4f}, max {warm[-1]:.4f}), {tokens / med * 1e3:.1f} "
+        f"tokens/s; train state {state_gb:.3f} GB, max_memory_allocated "
+        f"{peak / 1e9:.3f} GB")
+    log(f"train losses: {[round(x, 4) for x in losses]}")
+    require(all(np.isfinite(losses)), f"train: losses {losses}")
+    require(np.mean(losses[-5:]) < losses[0],
+            f"train: the last 5 losses' mean {np.mean(losses[-5:]):.4f} is "
+            f"not below the first {losses[0]:.4f}")
+
+    target = tree_map(lambda t: t.to("meta"), state)
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    restored, manifest = mgr.restore_latest(target, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ck_gb = sum(f.stat().st_size for f in ck.rglob("*")) / 1e9
+    require(manifest["step"] == TRAIN_CKPT_STEP,
+            f"train: restored step {manifest['step']}")
+    state, m = step_fn(restored, batches[TRAIN_CKPT_STEP])
+    del restored
+    loss_same = torch.equal(m["loss"], after[0].to(m["loss"].device))
+    loss_rel = abs(float(m["loss"]) / float(after[0]) - 1)
+    _, p_worst, p_same = _leaf_worst(state["params"], after[1])
+    log(f"train checkpoint at step {TRAIN_CKPT_STEP}: {ck_gb:.3f} GB on "
+        f"disk, save {save_s:.1f} s, restore into a meta target "
+        f"{load_s:.1f} s; resumed step {TRAIN_CKPT_STEP + 1} against the "
+        f"uninterrupted one: loss bit for bit {loss_same} (rel "
+        f"{loss_rel:.2e}, tol {RESUME_LOSS_RTOL}), params bit for bit "
+        f"{p_same}, max |dp| {p_worst:.3e} (tol {RESUME_TOL:.1e})")
+    require(loss_rel <= RESUME_LOSS_RTOL and p_worst <= RESUME_TOL,
+            "train: the resumed step differs from the uninterrupted one")
+    shutil.rmtree(ck, ignore_errors=True)
+    return state
+
+
+def _train_long(state, cfg, opt):
+    """One step of the full-width model at B=1, T=LONG_T under
+    remat="block" with attn_impl "auto" (chunked attention there), then
+    the same step under "naive" attention: loss, ms and peak memory of
+    the step, and the peak of its loss and grads alone (the step's own
+    peak is the optimizer update's, two train states at once)."""
+    from repro_torch.data import MarkovLMTask
+    from repro_torch.models import layers
+    from repro_torch.training.step import (make_loss_fn, make_train_step,
+                                           value_and_grad)
+    batch = _to_card(MarkovLMTask(vocab=cfg.vocab).batch(0, 1, LONG_T))
+    out = {}
+    chunked = layers.ATTN_IMPLS["chunked"]
+    calls = [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return chunked(*a, **kw)
+
+    def peak_of(fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        e0, e1 = _events()
+        e0.record()
+        r = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return r, e0.elapsed_time(e1), torch.cuda.max_memory_allocated()
+
+    for impl in ("auto", "naive"):
+        c = cfg.with_runtime(remat="block", attn_impl=impl)
+        layers.ATTN_IMPLS["chunked"] = counted
+        try:
+            ms = []
+            for _ in range(2):
+                (new, m), t, peak = peak_of(
+                    lambda: make_train_step(c, opt)(state, batch))
+                del new
+                ms.append(t)
+            (_, gm), gms, gpeak = peak_of(lambda: value_and_grad(
+                make_loss_fn(c), state["params"], batch)[0])
+        finally:
+            layers.ATTN_IMPLS["chunked"] = chunked
+        loss = float(m["loss"])
+        out[impl] = (loss, peak, gpeak)
+        log(f"train long B=1 T={LONG_T} remat=block attn_impl={impl}: loss "
+            f"{loss:.4f}; the step {ms[1]:.1f} ms (CUDA events; the first "
+            f"of two {ms[0]:.1f}), {LONG_T / ms[1] * 1e3:.1f} tokens/s, "
+            f"max_memory_allocated {peak / 1e9:.3f} GB;"
+            f" loss and grads alone {gms:.1f} ms, {gpeak / 1e9:.3f} GB"
+            + (f" (chunked attention calls over the three runs: {calls[0]})"
+               if impl == "auto" else ""))
+        require(np.isfinite(loss) and float(gm["loss"]) == loss,
+                f"train long {impl}: loss {loss}, again {float(gm['loss'])}")
+        if impl == "auto":
+            # Once a layer forward, and again where the backward
+            # recomputes the layer.
+            require(calls[0] >= 2 * cfg.n_layers,
+                    f"train long: auto took chunked {calls[0]} times, "
+                    f"under twice a layer ({cfg.n_layers} layers) a run")
+    rel = abs(out["auto"][0] / out["naive"][0] - 1)
+    log(f"train long: chunked vs naive loss rel {rel:.2e} (tol "
+        f"{LOSS64_RTOL}); loss-and-grads peak chunked "
+        f"{out['auto'][2] / 1e9:.3f} GB, naive {out['naive'][2] / 1e9:.3f} "
+        f"GB")
+    require(rel <= LOSS64_RTOL, "train long: chunked and naive losses differ")
+
+
+def _train_grads(cfg, args):
+    """Two layers at full width: fp32 loss and grads against the same
+    step in float64 on the card, and remat="block" against "none"."""
+    from repro_torch.data import MarkovLMTask
+    from repro_torch.models import init_params
+    from repro_torch.models.params import tree_map
+    from repro_torch.training.step import make_loss_fn, value_and_grad
+    c2 = dataclasses.replace(cfg, n_layers=2)
+    c64 = c2.with_runtime(param_dtype="float64", compute_dtype="float64")
+    p32 = init_params(c2, seed=1)
+    p64 = tree_map(lambda t: t.double(), p32)
+    batch = _to_card(MarkovLMTask(vocab=cfg.vocab).batch(
+        0, args.batch, args.seq))
+    (l32, _), g32 = value_and_grad(make_loss_fn(c2), p32, batch)
+    (l64, _), g64 = value_and_grad(make_loss_fn(c64), p64, batch)
+    del p64
+    rel = abs(float(l32) / float(l64) - 1)
+    worst, _, _ = _leaf_worst(g32, g64)
+    del g64
+    log(f"train grads, 2 layers at full width, B={args.batch} T={args.seq}: "
+        f"fp32 vs float64 loss rel {rel:.2e} (tol {LOSS64_RTOL}), worst "
+        f"grad leaf max|dg|/max|g64| {worst:.3e} (tol {GRAD64_TOL})")
+    require(rel <= LOSS64_RTOL and worst <= GRAD64_TOL,
+            "train grads: fp32 and float64 differ")
+    (lremat, _), gr = value_and_grad(
+        make_loss_fn(c2.with_runtime(remat="block")), p32, batch)
+    rworst, _, rsame = _leaf_worst(gr, g32)
+    log(f"train grads remat=block vs none: loss bit for bit "
+        f"{torch.equal(lremat, l32)}, grads bit for bit {rsame}, worst leaf "
+        f"{rworst:.3e} (tol {REMAT_TOL})")
+    require(torch.equal(lremat, l32) and rworst <= REMAT_TOL,
+            "train grads: remat=block and none differ")
+
+
+def phase_train():
+    """The training path at full width on the card (see the module
+    docstring). No kernel runs here: training takes the plain attention,
+    as the reference's does, and the phase requires that nothing
+    launched one. Returns the phase's launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    ops.reset_launch_counts()
+    args = launcher.parse_args(["--steps", str(TRAIN_STEPS),
+                                "--lr", str(TRAIN_LR)])
+    cfg, opt, step_fn = launcher.build(args)
+    state = _train_full(step_fn, cfg, opt, args)
+    _train_long(state, cfg, opt)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_grads(cfg, args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launcher.main(["--steps", "2"])
+    log(f"train: the launcher's CLI path (python -m repro_torch.launch."
+        f"train --steps 2) {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    require(not any(counts.values()),
+            f"train: the training path launched kernels {counts}")
+    return counts
+
+
+# --------------------------------------------------------------------------
 # Phase: profile (not in the default run)
 # --------------------------------------------------------------------------
 
@@ -2082,6 +2415,7 @@ def _timed(fn, n):
 
 
 PROFILE_STEPS, PROFILE_REPS = 64, 3
+PROFILE_TRAIN_STEPS = 5
 
 
 def phase_profile(p32, p8):
@@ -2319,6 +2653,46 @@ def _profile_engine(tag, name, cfg, p, T, max_seq, masked=False):
     return eager_group, prefills["eager"]
 
 
+def phase_profile_train():
+    """Where a full-width train step's time goes (the train phase's
+    model, optimizer and B x T): for the whole step and for its loss and
+    grads alone, host wall and the card's timeline (CUDA events) over
+    PROFILE_TRAIN_STEPS calls, then device kernel time and launches from
+    torch.profiler and the kernels that take the most."""
+    from repro_torch.data import MarkovLMTask
+    from repro_torch.launch import train as launcher
+    from repro_torch.training.step import (init_train_state, make_loss_fn,
+                                           value_and_grad)
+    args = launcher.parse_args(["--steps", str(TRAIN_STEPS),
+                                "--lr", str(TRAIN_LR)])
+    cfg, opt, step_fn = launcher.build(args)
+    holder = [init_train_state(cfg, opt, seed=0)]
+    batch = _to_card(MarkovLMTask(vocab=cfg.vocab).batch(
+        0, args.batch, args.seq))
+    loss_fn = make_loss_fn(cfg)
+
+    def step():
+        holder[0] = step_fn(holder[0], batch)[0]
+
+    def grads():
+        value_and_grad(loss_fn, holder[0]["params"], batch)
+    n = PROFILE_TRAIN_STEPS
+    for label, fn in (("step", step), ("loss and grads", grads)):
+        fn()
+        fn()
+        wall, timeline = _timed(fn, n)
+        pwall, dev, launches, ev = _profiled(fn, n)
+        log(f"profile train {label} (B={args.batch} T={args.seq}, full "
+            f"width): wall {wall:.2f} ms, timeline {timeline:.2f} ms (CUDA "
+            f"events), device kernels {dev:.2f} ms in {launches:.0f} "
+            f"launches, idle share {1 - dev / wall:.3f} (profiled wall "
+            f"{pwall:.2f} ms)")
+        _log_top(f"train {label}", ev, n, 10)
+    del holder
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_profile_recurrent(params):
     """Each recurrent candidate's steps (`_profile_engine`, prompt
     RG_T[0]), and (eager calls, profiler ranges) the device time of the
@@ -2479,6 +2853,9 @@ def main(argv=None):
         dcounts = phase_serve_dense()
     if "profile_dense" in phases:
         phase_profile_dense()
+    tcounts = phase_train() if "train" in phases else None
+    if "profile_train" in phases:
+        phase_profile_train()
     log(f"card: {card}; wall {time.perf_counter() - t0:.1f} s")
     if results:
         kernels = []
@@ -2497,6 +2874,9 @@ def main(argv=None):
                 # The dense path's own run (gemma2-9b int8 and yi-9b int8
                 # behind CNNSelectServer).
                 launches_dense=None if dcounts is None else dcounts[name],
+                # The training path's run: none (it runs the plain
+                # attention; the kernels have no backward).
+                launches_train=None if tcounts is None else tcounts[name],
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -3,11 +3,16 @@
 
 Each entry point runs the CUDA kernel on a CUDA tensor and the plain
 version from `kernels.ref` on a CPU tensor. There is no fallback: a
-CUDA tensor either launches its kernel or raises. The kernels read the
+CUDA tensor either launches its kernel or raises. The kernels have no
+backward (nor have the reference's Pallas kernels), so every entry point
+raises when autograd would have to differentiate it, on either device,
+rather than return a result cut off from the graph. The kernels read the
 model layout (B, T, H, hd) through strides and mask ragged lengths
 themselves, so nothing here transposes into a copy or pads."""
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.decode_attention import decode_attention as _decode
@@ -82,11 +87,21 @@ def _on_cpu(*tensors) -> bool:
     return devs == {"cpu"}
 
 
+def _no_backward(name, *tensors):
+    """Raise where autograd would need the kernel's backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward, and an input requires grad: train "
+            f"with attn_impl 'naive', 'chunked' or 'auto' and float "
+            f"weights, or call it under torch.no_grad()")
+
+
 def flash_attention_btHd(q, k, v, valid_from=None, *, window=0, softcap=0.0,
                          scale=None):
     """Model-layout prefill attention: q (B,T,H,hd), k/v (B,S,KV,hd) ->
     (B,T,H,hd). valid_from: optional (B,) first attendable key index
     (0-based, on the same axis as the implicit positions)."""
+    _no_backward("flash_attention", q, k, v)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if _on_cpu(q, k, v):
         out = R.flash_attention_ref(qt, kt, vt, window=window, cap=softcap,
@@ -119,6 +134,7 @@ def decode_attention(q, k, v, pos, cache_pos, valid_from=None, *,
     kernel, never by the host). valid_from: optional (B,) first attendable
     stored position; linear declares slot == position (full-seq caches),
     enabling the tile skip."""
+    _no_backward("decode_attention", q, k, v)
     squeeze = q.ndim == 4
     if squeeze:
         q = q[:, 0]
@@ -135,6 +151,7 @@ def decode_attention(q, k, v, pos, cache_pos, valid_from=None, *,
 
 def int8_matmul(x, w_q, w_scale):
     """x: (M, K) float; w_q: (K, N) int8; w_scale: (N,) f32 -> (M, N)."""
+    _no_backward("int8_matmul", x, w_q, w_scale)
     if _on_cpu(x, w_q, w_scale):
         return R.int8_matmul_ref(x, w_q, w_scale)
     return _int8mm(x, w_q, w_scale)

@@ -1,1 +1,1 @@
-"""Launchers of the port: the CNNSelect serving CLI."""
+"""Launchers of the port: the CNNSelect serving CLI and the trainer."""

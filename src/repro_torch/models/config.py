@@ -89,7 +89,7 @@ class ModelConfig:
     # Runtime knobs (not architecture):
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
-    attn_impl: str = "auto"  # auto | naive | cuda
+    attn_impl: str = "auto"  # auto | naive | chunked | cuda
     attn_chunk: int = 512
     remat: str = "none"  # none | block | moe_save (checkpoint around each group)
 

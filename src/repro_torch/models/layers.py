@@ -7,16 +7,21 @@ attention implementation is selected by `cfg.attn_impl`:
 - ``cuda``: the hand-written kernels of `repro_torch.kernels` (flash
   attention for prefill, decode attention against the cache); on CPU
   tensors their plain versions.
-- ``auto``: ``naive`` wherever the reference's ``auto`` picks naive. Where
-  the reference would pick its chunked attention, this raises: chunked
-  attention belongs to a later slice of the port.
+- ``chunked``: the reference's pure-JAX flash attention (its
+  ``jax_chunked``) in plain torch: query chunks by key chunks with a
+  running (max, denom, acc) in fp32. It is what training runs past
+  4096² and what autograd differentiates (the kernels have no backward).
+- ``auto``: as the reference's ``auto``: ``naive`` for Tq == 1 or Tq*Tk
+  <= 4096², ``chunked`` above.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 
@@ -27,13 +32,20 @@ NEG_INF = -1e30
 # --------------------------------------------------------------------------
 
 
+def f32_up(x):
+    """x in fp32, or in float64 if it is float64 already (the float64
+    reference runs that hold fp32 gradients): what the reference's
+    fp32 accumulations become for each input dtype."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rms_norm(x, weight, eps: float = 1e-6, *, zero_centered: bool = True):
     """RMSNorm with fp32 accumulation. `zero_centered`: gemma-style (1+w)."""
     dt = x.dtype
-    xf = x.float()
+    xf = f32_up(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
-    w = weight.float()
+    w = f32_up(weight)
     scale = (1.0 + w) if zero_centered else w
     return (xf * scale).to(dt)
 
@@ -119,7 +131,7 @@ def attention_naive(q, k, v, pos_q, pos_k, *, window: int, cap: float,
     Hq, KV = q.shape[2], k.shape[2]
     k = _repeat_kv(k, Hq // KV)
     v = _repeat_kv(v, Hq // KV)
-    logits = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(), k.float())
+    logits = torch.einsum("bqhd,bkhd->bhqk", f32_up(q * scale), f32_up(k))
     logits = softcap(logits, cap)
     mask = _attn_mask(pos_q, pos_k, window)
     logits = torch.where(mask[None, None], logits, NEG_INF)
@@ -137,10 +149,91 @@ def attention_naive(q, k, v, pos_q, pos_k, *, window: int, cap: float,
     return out
 
 
+def attention_chunked(q, k, v, pos_q, pos_k, *, window: int, cap: float,
+                      scale: float, chunk_q: int, chunk_k: int,
+                      valid_from=None):
+    """Flash attention in plain torch: a loop over query chunks, an inner
+    loop over key chunks, a running (max, denom, acc) in fp32.
+
+    Padded q rows (position -1e9) are dropped; padded k columns carry
+    position -1 and are masked. With valid_from, a key chunk that lies
+    wholly below every row's valid_from is skipped (it would leave every
+    row's running sums as they are), and a row that no key reaches gives
+    zeros. The skip is decided on the host, one read a call; inside a
+    CUDA graph capture, which refuses that read, every chunk runs, which
+    gives the same bits."""
+    B, Tq, Hq, hd = q.shape
+    Tk, KV = k.shape[1], k.shape[2]
+    k = _repeat_kv(k, Hq // KV)
+    v = _repeat_kv(v, Hq // KV)
+    cq = min(chunk_q, Tq)
+    ck = min(chunk_k, Tk)
+    pad_q = (-Tq) % cq
+    pad_k = (-Tk) % ck
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+        pos_q = F.pad(pos_q, (0, pad_q), value=-(10 ** 9))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+        pos_k = F.pad(pos_k, (0, pad_k), value=-1)
+    nq, nk = q.shape[1] // cq, k.shape[1] // ck
+    run = [True] * nk
+    if valid_from is not None and not (
+            q.is_cuda and torch.cuda.is_current_stream_capturing()):
+        run = (pos_k.reshape(nk, ck).amax(1)
+               >= valid_from.min()).tolist()
+
+    outs = []
+    for i in range(nq):
+        qc = f32_up(q[:, i * cq:(i + 1) * cq] * scale)
+        pq = pos_q[i * cq:(i + 1) * cq]
+        acc_dt = qc.dtype
+        m = torch.full((B, Hq, cq), -math.inf, dtype=acc_dt, device=q.device)
+        l = torch.zeros((B, Hq, cq), dtype=acc_dt, device=q.device)
+        acc = torch.zeros((B, Hq, cq, hd), dtype=acc_dt, device=q.device)
+        for j in range(nk):
+            if not run[j]:
+                continue
+            sl = slice(j * ck, (j + 1) * ck)
+            pk = pos_k[sl]
+            logits = torch.einsum("bqhd,bkhd->bhqk", qc, f32_up(k[:, sl]))
+            logits = softcap(logits, cap)
+            mask = _attn_mask(pq, pk, window)
+            logits = torch.where(mask[None, None], logits, NEG_INF)
+            if valid_from is not None:
+                rm = _row_mask(pk, valid_from)  # (B, ck)
+                logits = torch.where(rm[:, None, None, :], logits, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, f32_up(v[:, sl]))
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        if valid_from is not None:
+            # Fully masked rows (m never rose above the -1e30 fill; the
+            # -inf init marks rows whose every chunk was skipped): zeros.
+            out = torch.where((m > -5e29)[..., None], out, 0.0)
+        outs.append(out.transpose(1, 2).to(v.dtype))  # (B,cq,H,hd)
+    return torch.cat(outs, dim=1)[:, :Tq]
+
+
 def _impl_naive(q, k, v, pos_q, pos_k, cfg, *, window, cap, scale,
                 valid_from, cache_pos):
     return attention_naive(q, k, v, pos_q, pos_k, window=window, cap=cap,
                            scale=scale, valid_from=valid_from)
+
+
+def _impl_chunked(q, k, v, pos_q, pos_k, cfg, *, window, cap, scale,
+                  valid_from, cache_pos):
+    if q.shape[1] == 1:  # single-token: chunking buys nothing
+        return attention_naive(q, k, v, pos_q, pos_k, window=window, cap=cap,
+                               scale=scale, valid_from=valid_from)
+    return attention_chunked(q, k, v, pos_q, pos_k, window=window, cap=cap,
+                             scale=scale, chunk_q=cfg.attn_chunk,
+                             chunk_k=cfg.attn_chunk, valid_from=valid_from)
 
 
 def _impl_cuda(q, k, v, pos_q, pos_k, cfg, *, window, cap, scale,
@@ -174,6 +267,7 @@ def _impl_cuda(q, k, v, pos_q, pos_k, cfg, *, window, cap, scale,
 # including per-row valid_from and the decode step's cache_pos.
 ATTN_IMPLS = {
     "naive": _impl_naive,
+    "chunked": _impl_chunked,
     "cuda": _impl_cuda,
 }
 
@@ -185,12 +279,7 @@ def attention(q, k, v, pos_q, pos_k, cfg: ModelConfig, *, window: int,
     impl = cfg.attn_impl
     Tq, Tk = q.shape[1], k.shape[1]
     if impl == "auto":
-        if Tq > 1 and Tq * Tk > 4096 * 4096:
-            raise NotImplementedError(
-                f"attn_impl='auto' picks chunked attention for Tq*Tk = "
-                f"{Tq}*{Tk}; chunked attention is not ported yet (a later "
-                f"slice of the port). Use attn_impl='cuda' or 'naive'.")
-        impl = "naive"
+        impl = "naive" if Tq == 1 or Tq * Tk <= 4096 * 4096 else "chunked"
     try:
         fn = ATTN_IMPLS[impl]
     except KeyError:

@@ -4,11 +4,12 @@ patterns, on torch tensors.
 A model is `n_layers` blocks produced by cycling `cfg.pattern`; layers
 are grouped as in the reference (one group = one pass through the
 pattern, `n_layers % len(pattern)` tail layers). The reference's
-`lax.scan` over stacked groups becomes a Python loop that indexes the
-stacked leaves: `params["blocks"][i][key][g]` is a view, no copy.
+`lax.scan` over stacked groups becomes a Python loop over views of the
+stacked leaves: each parameter leaf is unbound once into its groups,
+each cache leaf indexed (`cache["blocks"][i][key][g]`), no copy.
 
 Entry points:
-  forward(params, inputs, cfg)                      -> (logits, extras)
+  forward(params, inputs, cfg)                      -> (logits, {"aux_loss", "cache"})
   forward(..., cache=init_cache(...), positions)    -> prefill: fills cache
   decode_step(params, token, cache, cache_pos, cfg) -> (logits, cache)
 
@@ -23,10 +24,11 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import params as pmod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import attn_block, rms_norm, softcap
+from repro_torch.models.layers import attn_block, f32_up, rms_norm, softcap
 from repro_torch.models.rglru import rglru_block
 from repro_torch.models.ssd import ssd_block
 from repro_torch.utils import dtype_of, resolve_device
@@ -104,6 +106,17 @@ def _index(tree, g: int):
     return tree[g]
 
 
+def _unstack(tree, n: int):
+    """A stacked tree's n scan groups, each a tree of views. Every leaf
+    is unbound once: its backward stacks the n groups' grads in one pass,
+    where indexing it group by group would add n zero-padded full-size
+    grads (most of a full-width train step's time)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][g] for k in parts} for g in range(n)]
+    return torch.unbind(tree, 0)
+
+
 def _apply_block(kind: str, p, x, cfg: ModelConfig, positions, cache,
                  cache_pos, valid_from):
     if kind in RECURRENT_KINDS:
@@ -123,6 +136,16 @@ def _apply_block(kind: str, p, x, cfg: ModelConfig, positions, cache,
     return x
 
 
+def _apply_group(cfg: ModelConfig, ps, x, positions, cs, cache_pos,
+                 valid_from):
+    """One pass through the pattern: the reference's scan body."""
+    for i, kind in enumerate(cfg.pattern):
+        c = None if cs is None else cs[i]
+        x = _apply_block(kind, ps[i], x, cfg, positions, c, cache_pos,
+                         valid_from)
+    return x
+
+
 def forward(params, inputs, cfg: ModelConfig, *, cache=None,
             cache_pos=None, positions=None,
             logits_last_only: bool = False, valid_from=None):
@@ -135,8 +158,19 @@ def forward(params, inputs, cfg: ModelConfig, *, cache=None,
     device that `decode_step` builds (default 0, as in the reference).
     valid_from: optional (B,) int32 per-row first attendable position
     (attention-only patterns; recurrent blocks raise).
-    Returns (logits, {"cache": cache})."""
+    cfg.remat == "block": under autograd and without a cache, each scan
+    group's blocks run under `torch.utils.checkpoint` (the reference's
+    `jax.checkpoint` of its scan body): their activations are computed
+    again in the backward instead of kept. A cached forward writes its
+    cache in place, which a second run would write again, and gives the
+    same values either way, so it runs as it is.
+    Returns (logits, {"aux_loss": 0-d fp32, "cache": cache}); aux_loss is
+    the MoE balance loss in the reference, zero for every ported block."""
     _check_kinds(cfg)
+    if cfg.remat == "moe_save":
+        raise NotImplementedError(
+            "remat='moe_save' saves the MoE outputs, and MoE blocks are not "
+            "ported yet (a later slice of the port); use remat='block'")
     compute_dtype = dtype_of(cfg.compute_dtype)
     if cfg.input_mode == "embeddings":
         x = inputs.to(compute_dtype)
@@ -154,11 +188,21 @@ def forward(params, inputs, cfg: ModelConfig, *, cache=None,
     if cache_pos is None:
         cache_pos = torch.zeros((), dtype=torch.int32, device=x.device)
 
-    for g in range(cfg.n_groups_scan):
-        for i, kind in enumerate(cfg.pattern):
-            c = None if cache is None else _index(cache["blocks"][i], g)
-            x = _apply_block(kind, _index(params["blocks"][i], g), x, cfg,
-                             positions, c, cache_pos, valid_from)
+    remat = (cfg.remat == "block" and cache is None
+             and torch.is_grad_enabled())
+    G = cfg.n_groups_scan
+    groups = [_unstack(b, G) for b in params["blocks"]]
+    for g in range(G):
+        ps = [b[g] for b in groups]
+        cs = None if cache is None else [_index(c, g)
+                                         for c in cache["blocks"]]
+        if remat:
+            x = checkpoint(_apply_group, cfg, ps, x, positions, cs,
+                           cache_pos, valid_from, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _apply_group(cfg, ps, x, positions, cs, cache_pos,
+                             valid_from)
     for i, kind in enumerate(cfg.tail_kinds):
         c = None if cache is None else cache["tail"][i]
         x = _apply_block(kind, params["tail"][i], x, cfg, positions, c,
@@ -172,8 +216,9 @@ def forward(params, inputs, cfg: ModelConfig, *, cache=None,
     else:
         logits = torch.einsum("btd,dv->btv", x,
                               params["lm_head"].to(x.dtype))
-    logits = softcap(logits.float(), cfg.final_softcap)
-    return logits, {"cache": cache}
+    logits = softcap(f32_up(logits), cfg.final_softcap)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, {"aux_loss": aux, "cache": cache}
 
 
 def decode_step(params, token, cache, cache_pos, cfg: ModelConfig, *,

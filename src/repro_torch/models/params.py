@@ -172,13 +172,61 @@ def tree_leaves(tree):
         yield tree
 
 
-def tree_map(fn, tree):
-    """Apply fn to every tensor leaf, keeping dict/tuple structure."""
+def tree_map(fn, tree, *rest):
+    """Apply fn to every leaf of tree, keeping dict/tuple structure. Each
+    tree of `rest` has tree's structure down to tree's leaves; fn gets
+    the matching subtree of each (a leaf, or a whole subtree where tree
+    has a leaf: an optimizer's per-parameter state)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, x) for x in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, x, *(r[i] for r in rest))
+                          for i, x in enumerate(tree))
+    return fn(tree, *rest)
+
+
+class Packed:
+    """Several per-leaf results as one leaf of `tree_map`, so they can be
+    split apart (`unpack`) after one pass over the tree."""
+    __slots__ = ("vals",)
+
+    def __init__(self, *vals):
+        self.vals = vals
+
+
+def unpack(tree, i):
+    """The tree of each Packed leaf's i-th value."""
+    return tree_map(lambda t: t.vals[i], tree)
+
+
+def tree_leaves_sorted(tree):
+    """Leaves in `jax.tree.flatten`'s order: dict keys sorted, sequences
+    in order, None no leaf. The order of the reference's checkpoints and
+    of its sums over a tree."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves_sorted(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in tree_leaves_sorted(t)]
+    return [] if tree is None else [tree]
+
+
+def tree_unflatten_sorted(tree, leaves):
+    """tree's structure with `leaves` (in `tree_leaves_sorted`'s order)
+    in place of its own."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            done = {k: build(t[k]) for k in sorted(t)}
+            return {k: done[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        return None if t is None else next(it)
+    out = build(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
 
 
 def _to_torch(a, device):

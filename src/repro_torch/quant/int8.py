@@ -1,15 +1,77 @@
-"""int8 weight quantization for serving: symmetric, per output channel.
+"""int8 quantization with per-channel scales, and error feedback.
 
-Projection weights stay resident as {"q" int8, "scale" f32} leaves (no
-dequantized copy) and `models.layers._proj` sends them to the int8
-matmul kernel. `torch.round` and the reference's `jnp.round` both round
-half to even, so `q` and the scales equal the reference's exactly."""
+- Weights for serving: symmetric, per output channel. Projection
+  weights stay resident as {"q" int8, "scale" f32} leaves (no
+  dequantized copy) and `models.layers._proj` sends them to the int8
+  matmul kernel.
+- Deltas and gradients: `quantize_int8` along one axis, and
+  `ef_compress`, which quantizes a tensor plus the residual carried from
+  the last call and returns the new residual, so that summed over calls
+  the quantization error does not accumulate (DiLoCo's outer sync).
+
+`torch.round` and the reference's `jnp.round` both round half to even,
+so `q` and the scales equal the reference's exactly."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.params import tree_leaves
+from repro_torch.models.params import tree_leaves, tree_map
+
+
+def quantize_int8(x, axis: int = -1):
+    """Symmetric per-channel int8 (one scale per slice along `axis`).
+    Returns (q int8, scale f32, with `axis` kept as size 1)."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=axis, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q, scale):
+    return q.float() * scale
+
+
+def _is_q(x):
+    return isinstance(x, dict) and set(x) == {"q", "scale"}
+
+
+def quantize_tree(tree, min_size: int = 1024):
+    """Quantize float leaves of at least 2 axes and `min_size` elements;
+    keep the rest. Returns a tree of {"q", "scale"} dicts or raw leaves."""
+    def f(x):
+        if (isinstance(x, torch.Tensor) and x.is_floating_point()
+                and x.numel() >= min_size and x.ndim >= 2):
+            q, s = quantize_int8(x)
+            return {"q": q, "scale": s}
+        return x
+    return tree_map(f, tree)
+
+
+def dequantize_tree(tree, like=None):
+    """Inverse of `quantize_tree`; with `like`, each leaf in like's dtype."""
+    def f(x):
+        if _is_q(x):
+            return dequantize_int8(x["q"], x["scale"])
+        if isinstance(x, dict):
+            return {k: f(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(f(v) for v in x)
+        return x
+    out = f(tree)
+    if like is not None:
+        out = tree_map(lambda o, l: o.to(l.dtype), out, like)
+    return out
+
+
+def ef_compress(x, residual, axis: int = -1):
+    """Error-feedback quantization step: q = Q(x + residual),
+    new_residual = (x + residual) - deq(q). Returns (q, scale,
+    new_residual)."""
+    target = x.float() + residual
+    q, scale = quantize_int8(target, axis)
+    return q, scale, target - dequantize_int8(q, scale)
 
 # Projection leaves the int8 matmul kernel can consume, with the number
 # of trailing *output* axes per key (everything before them — minus a

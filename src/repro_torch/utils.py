@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 DTYPES = {
+    "float64": torch.float64,
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,

@@ -803,3 +803,87 @@ def test_int8_prefill_long_k_vs_float64(cuda, K, N):
     torch.cuda.synchronize()
     rel = float((out.double() - exact).abs().max() / exact.abs().max())
     assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "int8_matmul"])
+def test_kernel_wrappers_raise_under_autograd(cuda, name):
+    """The kernels have no backward: a call that autograd would have to
+    differentiate raises on the card too, rather than launch and return
+    a result cut off from the graph."""
+    def calls(requires_grad):
+        def rnd(*shape):
+            return torch.randn(shape, generator=cuda, device="cuda") \
+                .requires_grad_(requires_grad)
+        q, k, v = rnd(2, 64, 4, 64), rnd(2, 64, 2, 64), rnd(2, 64, 2, 64)
+        pos = torch.arange(64, device="cuda")
+        w = torch.randint(-127, 128, (64, 128), generator=cuda,
+                          device="cuda", dtype=torch.int8)
+        return {
+            "flash_attention": lambda: ops.flash_attention(q, k, v, pos, pos),
+            "decode_attention": lambda: ops.decode_attention(
+                q[:, :1], k, v, pos.int(),
+                torch.tensor(63, dtype=torch.int32, device="cuda")),
+            "int8_matmul": lambda: ops.int8_matmul(
+                rnd(16, 64), w, torch.rand(128, generator=cuda,
+                                           device="cuda")),
+        }[name]
+    before = ops.launch_counts()[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        calls(True)()
+    assert ops.launch_counts()[name] == before
+    with torch.no_grad():
+        out = calls(True)()
+    torch.cuda.synchronize()
+    assert not out.requires_grad and ops.launch_counts()[name] == before + 1
+
+
+def test_train_grads_two_full_width_layers_match_float64(cuda):
+    """stablelm-1.6b at full width cut to 2 layers: the fp32 loss and
+    gradients of a B=8, T=64 train step against the same step in float64
+    on the card (each leaf within 1e-4 of its max|float64 grad|)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.params import tree_leaves_sorted, tree_map
+    from repro_torch.training.step import make_loss_fn, value_and_grad
+    cfg = dataclasses.replace(get_config("stablelm_1_6b"), n_layers=2)
+    c64 = cfg.with_runtime(param_dtype="float64", compute_dtype="float64")
+    p32 = init_params(cfg, seed=1)
+    tokens = torch.randint(0, cfg.vocab, (8, 65), generator=cuda,
+                           device="cuda")
+    batch = {"inputs": tokens[:, :-1], "labels": tokens[:, 1:]}
+    (l32, _), g32 = value_and_grad(make_loss_fn(cfg), p32, batch)
+    (l64, _), g64 = value_and_grad(
+        make_loss_fn(c64), tree_map(lambda t: t.double(), p32), batch)
+    assert abs(float(l32) / float(l64) - 1) < 1e-5
+    for a, b in zip(tree_leaves_sorted(g32), tree_leaves_sorted(g64)):
+        assert a.dtype == torch.float32 and b.dtype == torch.float64
+        assert (a.double() - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+def test_chunked_attention_captures_without_the_skip(cuda):
+    """Inside a CUDA graph capture the chunked attention cannot read its
+    early-skip decision back to the host, so it runs every key chunk;
+    the replay gives the eager call's bits, which skips the first chunk
+    (every row starts at 600, past the first 512 keys)."""
+    from repro_torch.models.layers import attention_chunked
+    q, k, v = (_randn(cuda, (2, 1100, 4, 64), torch.float32)
+               for _ in range(3))
+    pos = torch.arange(1100, device="cuda")
+    vf = torch.tensor([600, 700], dtype=torch.int32, device="cuda")
+    kw = dict(window=0, cap=30.0, scale=0.125, chunk_q=512, chunk_k=512,
+              valid_from=vf)
+    eager = attention_chunked(q, k, v, pos, pos, **kw)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        attention_chunked(q, k, v, pos, pos, **kw)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = attention_chunked(q, k, v, pos, pos, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert not out[:, :600].any()

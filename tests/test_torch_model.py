@@ -196,12 +196,17 @@ def test_unported_kinds_raise():
         from repro_torch.models import init_cache
         init_cache(dataclasses.replace(tcfg, pattern=("moe",)), 1, 8,
                    device="cpu")
-    big = dataclasses.replace(tcfg, attn_impl="auto")
-    q = torch.zeros(1, 4097, 4, 16)
+    # Past Tq*Tk = 4096² "auto" computes, as the reference's does: it
+    # takes the chunked attention (tests/test_torch_chunked.py holds
+    # that against the reference).
+    big = dataclasses.replace(tcfg, attn_impl="auto", attn_chunk=1024)
+    q = torch.randn(1, 4097, 1, 16, generator=torch.Generator().manual_seed(0))
     from repro_torch.models.layers import attention
     pos = torch.arange(4097)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        attention(q, q, q, pos, pos, big, window=0)
+    got = attention(q, q, q, pos, pos, big, window=0)
+    want = attention(q, q, q, pos, pos,
+                     dataclasses.replace(big, attn_impl="chunked"), window=0)
+    assert torch.equal(got, want)
 
 
 def _slice_weights(impl, quant=None, seed=7):

@@ -26,7 +26,8 @@ COPIED = ["core/registry.py", "core/selection.py", "core/profiles.py",
           "configs/recurrentgemma_2b.py", "configs/mamba2_2_7b.py",
           "configs/gemma2_9b.py", "configs/yi_9b.py",
           "configs/deepseek_coder_33b.py", "configs/musicgen_large.py",
-          "configs/chameleon_34b.py"]
+          "configs/chameleon_34b.py", "data/pipeline.py",
+          "data/__init__.py"]
 # ... except these, which the port rewrites in torch (selection.py).
 REWRITTEN = {"cnnselect_batch", "_BATCH_JIT", "_jit_cnnselect_batch",
              "CNNSelectPolicy.select_batch", "CNNSelectPolicy.__doc__"}
@@ -127,21 +128,34 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(no_card):
+def test_entry_points_default_to_cuda_and_raise_without_it(no_card,
+                                                           tmp_path):
     from repro_torch.configs import reduced_config
     from repro_torch.launch import serve
     from repro_torch.models import from_jax, init_cache, init_params
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.measured import build_model, build_zoo
+    from repro_torch.launch import train
+    from repro_torch.training.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.optim import adamw, constant_schedule
+    from repro_torch.training.step import init_train_state
     cfg = reduced_config("stablelm_1_6b")
     params = init_params(cfg, 0, device="cpu")
+    opt = adamw(constant_schedule(1e-3))
+    ck = str(tmp_path / "ck")
+    save_checkpoint(ck, {"w": torch.zeros(2)}, step=1)
     calls = [lambda: init_params(cfg, 0),
              lambda: init_cache(cfg, 1, 8),
              lambda: from_jax({"w": torch.zeros(2).numpy()}),
              lambda: InferenceEngine(cfg, params, batch_size=1, max_seq=8),
              lambda: build_model("lm_tiny"),
              lambda: build_zoo(["lm_tiny"]),
-             lambda: serve.main(["--requests", "1"])]
+             lambda: serve.main(["--requests", "1"]),
+             lambda: init_train_state(cfg, opt),
+             lambda: train.main(["--reduced", "--steps", "1"]),
+             lambda: restore_checkpoint(ck, {"w": torch.zeros(2,
+                                                             device="meta")})]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
