@@ -46,7 +46,22 @@ Phases (each prints its results, one line each):
            slots; every kernel's launch counter (graph replays
            included), and that of the int8 kernel's prefill path, must
            be > 0 here; each engine's captures, replays and capture
-           seconds
+           seconds. A TraceRecorder captures the server's and the
+           loop's requests
+  sim      the simulation plane on the serve phase's server (no new
+           model): each serve capture holds one record a request
+           served, is valid and carries exec_ms on each; then for
+           cnnselect and greedy_nw, 200 requests (prompts of 64
+           tokens, 8 new tokens, uploads from the wifi -> lte step
+           trace scaled to the fp32 candidate's mean) served under a
+           TraceRecorder, the capture saved as JSONL and npz and loaded
+           back bit for bit, and replayed through simulate (profiles
+           fitted from the capture, its uploads exactly, its exec_ms
+           injected): |sim - served attainment| <= 0.02. After the
+           dense phase, attainment_improvement (CNNSelect against
+           greedy, 16 SLA points, 10000 requests each, a CPU
+           computation) on every candidate profile the serve phases
+           measured
   recurrent
            recurrentgemma-2b (fp32, int8) and mamba2-2.7b (fp32) at their
            published size, batch 4, max_seq 4096: the engine's graphs
@@ -144,8 +159,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "model", "serve", "recurrent", "dense",
-          "train")
+PHASES = ("build", "kernels", "model", "serve", "sim", "recurrent",
+          "dense", "train")
 EXTRA_PHASES = ("profile", "profile_recurrent", "profile_dense",
                 "profile_train", "tune")
 
@@ -1534,6 +1549,7 @@ def phase_serve(p32, p8):
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.loop import ServingLoop
     from repro_torch.serving.server import CNNSelectServer, ServedModel
+    from repro_torch.serving.trace import TraceRecorder
 
     cfg = _full_width("cuda")
     engines = {"stablelm_fp32": InferenceEngine(cfg, p32, batch_size=B,
@@ -1558,6 +1574,8 @@ def phase_serve(p32, p8):
                 f"acc={p.accuracy} size={p.size_bytes}")
         mus = sorted(p.mu for p in profs)
         rng = np.random.default_rng(1)
+        # Trace capture on the served path (the sim phase checks it).
+        srv_rec = TraceRecorder(name="serve-server").attach(srv)
         for i in range(8):
             # Alternate a budget between the two candidates' means and a
             # generous one, so the selection has a real choice to make.
@@ -1571,9 +1589,11 @@ def phase_serve(p32, p8):
                     f"server request {i}")
             log(f"server req {i}: sla={sla:.1f} {json.dumps(rec)}")
         log(f"server summary: {json.dumps(srv.metrics.summary())}")
+        srv_rec.detach()
 
         loop = ServingLoop(engines, profiles=profs, t_threshold=30.0,
                            policy="cnnselect")
+        loop_rec = TraceRecorder(name="serve-loop").attach(loop)
         for e in engines.values():   # the loop's prompt length
             e.warmup(S_CACHE // 4)
         reqs = []
@@ -1585,6 +1605,7 @@ def phase_serve(p32, p8):
                 max_new_tokens=int(2 + i % 5), sla_ms=1e5,
                 t_input_ms=float(rng.uniform(5.0, 15.0))))
         m = loop.run(reqs)
+        loop_rec.detach()
     torch.cuda.synchronize()
     for r in m.records:
         log(f"loop record: {json.dumps(r, default=str)}")
@@ -1622,7 +1643,235 @@ def phase_serve(p32, p8):
         require(n > 0, f"{name} launched on the main path")
         require(replayed[name] > 0,
                 f"{name} launched by a graph replay on the main path")
-    return counts
+    served = dict(srv=srv, profiles=profs, ref="stablelm_fp32",
+                  captures={"server": (srv_rec, srv.metrics.summary()),
+                            "loop": (loop_rec, s)})
+    return counts, served
+
+
+# --------------------------------------------------------------------------
+# Phase: sim (captures of the served path, replayed through simulate)
+# --------------------------------------------------------------------------
+
+# The reference's sim-to-real smoke (benchmarks/trace_replay.py): its CI
+# request count, seed, policies and attainment tolerance (--tol).
+SIM_N = 200
+SIM_SEED = 11
+SIM_POLICIES = ("cnnselect", "greedy_nw")
+SIM_TOL = 0.02
+# The paper's headline (simulator.attainment_improvement): SLA points
+# and requests a point, under the stationary campus network.
+HEADLINE_POINTS = 16
+HEADLINE_N = 10000
+TRACE_COLUMNS = ("t_arrival", "device_id", "t_input_ms", "regime_id",
+                 "model", "sla_ok")
+
+
+def check_capture(trace, n_served, label):
+    """A served capture: one record per request served, valid, and a
+    measured exec_ms in its meta for every record."""
+    require(len(trace) == n_served,
+            f"{label}: {len(trace)} records for {n_served} served")
+    trace.validate()
+    ex = np.asarray(trace.meta.get("exec_ms", []), np.float64)
+    require(len(ex) == n_served and np.isfinite(ex).all()
+            and (ex > 0).all(), f"{label}: exec_ms for every record")
+
+
+def roundtrip_capture(trace, tmpdir):
+    """Save the capture as JSONL and as npz, load both, and require
+    every column (dtype and bytes) and the header equal to the
+    capture's. Returns the capture loaded from JSONL."""
+    from repro_torch.serving.trace import Trace
+    back = {}
+    for ext in ("jsonl", "npz"):
+        path = Path(tmpdir) / f"{trace.name.replace(':', '_')}.{ext}"
+        trace.save(path)
+        got = back[ext] = Trace.load(path)
+        for col in TRACE_COLUMNS:
+            a, b = getattr(trace, col), getattr(got, col)
+            require(a.dtype == b.dtype and a.tobytes() == b.tobytes(),
+                    f"{trace.name}: column {col} through {ext}")
+        require(got.header() == trace.header(),
+                f"{trace.name}: header through {ext}")
+    return back["jsonl"]
+
+
+def capture_profiles(trace, fallback):
+    """Profiles fitted from the capture's measured exec_ms (mean, and
+    the std floored at 0.5 ms), the live profile for a model the
+    capture ran fewer than twice (benchmarks/trace_replay.py:123)."""
+    out = []
+    exec_ms = np.asarray(trace.meta["exec_ms"], np.float64)
+    for p in fallback:
+        mask = trace.model == p.name
+        if mask.sum() >= 2:
+            out.append(dataclasses.replace(
+                p, mu=float(exec_ms[mask].mean()),
+                sigma=max(float(exec_ms[mask].std()), 0.5)))
+        else:
+            out.append(p)
+    return out
+
+
+def exec_override(trace, order):
+    """(N, K): the captured selection's measured exec_ms, NaN (sampled
+    from the profile) for every other model."""
+    out = np.full((len(trace), len(order)), np.nan)
+    exec_ms = np.asarray(trace.meta["exec_ms"], np.float64)
+    index = {name: k for k, name in enumerate(order)}
+    for i, m in enumerate(trace.model):
+        if str(m) in index:
+            out[i, index[str(m)]] = exec_ms[i]
+    return out
+
+
+def capture_and_replay(srv, spec, n, t_sla, tin_proc, tmpdir, vocab,
+                       prompt_len):
+    """Serve n requests through `srv` under policy `spec` while a
+    TraceRecorder captures them; round-trip the capture through disk,
+    then replay it through `simulate`: profiles fitted from the capture,
+    its T_input sequence exactly, its measured exec_ms injected
+    (benchmarks/trace_replay.py:141-176). Returns (capture, SimResult,
+    server seconds for the n requests)."""
+    from repro_torch.core.selection import make_policy
+    from repro_torch.serving.batching import Request
+    from repro_torch.serving.simulator import SimConfig, simulate
+    from repro_torch.serving.trace import CapturedTraceProcess, TraceRecorder
+    srv.metrics = type(srv.metrics)()
+    srv.router.policy = make_policy(spec, t_threshold=30.0, seed=SIM_SEED)
+    live = srv.current_profiles()
+    t_inputs = tin_proc.sample_t_input(np.random.default_rng(SIM_SEED), n)
+    rng = np.random.default_rng(SIM_SEED + 1)
+    t0 = time.perf_counter()
+    with torch.no_grad(), TraceRecorder(name=f"sim-{spec}").attach(
+            srv) as rec:
+        for i in range(n):
+            srv.handle(Request(arrival=float(i), rid=i,
+                               prompt=rng.integers(0, vocab, prompt_len)
+                               .astype(np.int32),
+                               t_input_ms=float(t_inputs[i])), t_sla=t_sla)
+    served_s = time.perf_counter() - t0
+    trace = rec.to_trace(name=f"sim-{spec}", source="server",
+                         meta={"policy": spec, "t_sla": t_sla,
+                               "models": [p.name for p in live]})
+    check_capture(trace, srv.metrics.summary()["served"], trace.name)
+    trace = roundtrip_capture(trace, tmpdir)
+    profs = capture_profiles(trace, live)
+    sim = simulate(profs, SimConfig(
+        t_sla=t_sla, n_requests=len(trace),
+        network=CapturedTraceProcess(trace, mode="exact"),
+        policy=make_policy(spec, t_threshold=30.0, seed=SIM_SEED),
+        seed=SIM_SEED),
+        exec_override=exec_override(trace, [p.name for p in profs]))
+    return trace, sim, served_s
+
+
+def replay_policies(srv, ref, n, tmpdir, vocab, prompt_len):
+    """The sim-to-real loop for each of SIM_POLICIES at n requests, the
+    SLA by the reference's rule (trace_replay.py:187). Returns
+    {policy: row}."""
+    from repro_torch.configs.paper_zoo import synthetic_trace
+    from repro_torch.serving.network import TraceReplayProcess
+    mu = {p.name: p.mu for p in srv.current_profiles()}[ref]
+    # Uploads: the wifi -> lte step trace, jittered, scaled so that its
+    # mean is the `ref` candidate's measured mean (the reference's 0.2
+    # was set for host-sized engines).
+    step = synthetic_trace("wifi_lte_step", n)
+    tin_proc = TraceReplayProcess(mu / step.mean() * step, jitter_cv=0.15,
+                                  name="wifi_lte_step*mu")
+    t_sla = float(2.2 * tin_proc.mean + 1.25 * mu)
+    rows = {}
+    for spec in SIM_POLICIES:
+        trace, sim, served_s = capture_and_replay(
+            srv, spec, n, t_sla, tin_proc, tmpdir, vocab, prompt_len)
+        share = {name: float((trace.model == name).mean())
+                 for name in trace.meta["models"]}
+        # Where the replay picked the served model, its latency is the
+        # served one and so is its outcome; elsewhere (a policy's draws
+        # differ: the server's scalar cnnselect draws with numpy,
+        # simulate's batched one with a torch.Generator) it samples.
+        agreed = np.asarray(sim.model_names)[sim.selections] == trace.model
+        served_ok = trace.sla_ok == 1
+        rows[spec] = dict(n=len(trace), t_sla_ms=t_sla,
+                          served_attainment=trace.attainment,
+                          sim_attainment=sim.attainment,
+                          gap=sim.attainment - trace.attainment,
+                          share=share, served_s=served_s,
+                          other_model=int((~agreed).sum()),
+                          flips_where_agreed=int(
+                              (agreed & (sim.violations == served_ok))
+                              .sum()))
+    return rows
+
+
+def phase_sim(served):
+    """The serve phase's captures checked, then capture -> disk ->
+    replay at full width for each of SIM_POLICIES, through the serve
+    phase's CNNSelectServer (no new model)."""
+    import tempfile
+    t0 = time.perf_counter()
+    for label, (rec, summary) in served["captures"].items():
+        trace = rec.to_trace(name=f"serve-{label}")
+        check_capture(trace, summary["served"], f"serve {label} capture")
+        log(f"sim capture of the serve phase's {label}: {len(trace)} "
+            f"records, valid, exec_ms on each, attainment "
+            f"{trace.attainment}")
+    srv = served["srv"]
+    with tempfile.TemporaryDirectory() as tmpdir:
+        rows = replay_policies(srv, served["ref"], SIM_N, tmpdir,
+                               srv.models[served["ref"]].engine.cfg.vocab,
+                               T_SERVE)
+    for spec, r in rows.items():
+        log(f"sim replay {spec} (full width, N={r['n']}, JSONL and npz "
+            f"round trips bit-exact): {json.dumps(r)}")
+    for spec, r in rows.items():
+        require(abs(r["gap"]) <= SIM_TOL,
+                f"sim {spec}: |sim - served attainment| {abs(r['gap'])} "
+                f"> {SIM_TOL}")
+        require(r["flips_where_agreed"] == 0,
+                f"sim {spec}: an outcome changed where the replay ran the "
+                f"served model")
+    log(f"sim phase (captures, serving and replay) "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_sim_headline(profiles):
+    """attainment_improvement (paper: CNNSelect against greedy) on the
+    profiles the serve phases measured on the card. A CPU computation
+    on measured inputs: a reading, whose curves must only be finite and
+    in [0, 1]."""
+    from repro_torch.serving.simulator import (SimConfig,
+                                               attainment_improvement,
+                                               simulate)
+    t0 = time.perf_counter()
+    mus = [p.mu for p in profiles]
+    slas = np.linspace(min(mus) + 10.0, 3.0 * max(mus), HEADLINE_POINTS)
+    # Host ms of one simulate call at HEADLINE_N (the grid's middle SLA).
+    for policy in ("cnnselect", "greedy"):
+        cfg = SimConfig(t_sla=float(slas[HEADLINE_POINTS // 2]),
+                        n_requests=HEADLINE_N, network="campus_wifi",
+                        policy=policy)
+        ms = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            simulate(profiles, cfg)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        log(f"sim simulate {policy} N={HEADLINE_N} host ms (5 calls): "
+            f"median {float(np.median(ms))} min {min(ms)} max {max(ms)}")
+    out = attainment_improvement(profiles, slas, network="campus_wifi",
+                                 n_requests=HEADLINE_N)
+    for key in ("ours_attainment", "base_attainment", "ours_accuracy",
+                "base_accuracy"):
+        v = np.asarray(out[key])
+        require(np.isfinite(v).all() and (v >= 0).all() and (v <= 1).all(),
+                f"headline {key} finite and in [0, 1]")
+    log(f"sim headline (CPU simulate on the card's measured profiles of "
+        f"{[p.name for p in profiles]}; campus_wifi, "
+        f"{HEADLINE_N} requests a point): {json.dumps(out)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1809,7 +2058,8 @@ def _serve_candidates(tag, engines, acc, n_requests, seed):
     neighbouring candidates' means and a generous one, so the selection
     has a real choice to make. The launch counters are set to 0 just
     before and read just after: every kernel's launches by graph
-    replays on this path must be > 0. Returns the path's counts."""
+    replays on this path must be > 0. Returns the path's counts and the
+    candidates' measured profiles."""
     from repro_torch.kernels import ops
     from repro_torch.serving.batching import Request
     from repro_torch.serving.server import CNNSelectServer, ServedModel
@@ -1861,13 +2111,13 @@ def _serve_candidates(tag, engines, acc, n_requests, seed):
         require(replayed[name] > 0,
                 f"{name} launched by a graph replay on the {tag} path")
     del srv
-    return counts
+    return counts, profs
 
 
 def phase_serve_recurrent(params):
     """The recurrent candidates behind CNNSelectServer (the
     recurrentgemma engines launch every kernel; mamba2 none). Returns
-    the path's launch counts."""
+    the path's launch counts and measured profiles."""
     from repro_torch.serving.engine import InferenceEngine
     engines = {n: InferenceEngine(_cfg(n), p, batch_size=RG_B,
                                   max_seq=RG_MAX_SEQ, device="cuda")
@@ -1876,10 +2126,10 @@ def phase_serve_recurrent(params):
     # sets its tiers).
     acc = {"recurrentgemma_fp32": 0.72, "recurrentgemma_int8": 0.71,
            "mamba2_fp32": 0.70}
-    counts = _serve_candidates("recurrent", engines, acc, 9, 4)
+    counts, profs = _serve_candidates("recurrent", engines, acc, 9, 4)
     del engines
     torch.cuda.empty_cache()
-    return counts
+    return counts, profs
 
 
 # --------------------------------------------------------------------------
@@ -2094,7 +2344,7 @@ def phase_dense():
 def phase_serve_dense():
     """gemma2-9b int8 and yi-9b int8 (each built group by group from seed
     1) behind CNNSelectServer at max_seq S_CACHE. Returns the path's
-    launch counts."""
+    launch counts and measured profiles."""
     from repro_torch.serving.engine import InferenceEngine
     engines = {}
     with _peak("serve"):
@@ -2105,11 +2355,10 @@ def phase_serve_dense():
                                             batch_size=B, max_seq=S_CACHE)
         # Offline task scores of the candidates (set here, as the
         # launcher sets its tiers).
-        counts = _serve_candidates("dense", engines,
-                                   {"gemma2_int8": 0.76, "yi_int8": 0.75},
-                                   8, 7)
+        counts, profs = _serve_candidates(
+            "dense", engines, {"gemma2_int8": 0.76, "yi_int8": 0.75}, 8, 7)
         del engines
-    return counts
+    return counts, profs
 
 
 # --------------------------------------------------------------------------
@@ -2807,6 +3056,8 @@ def main(argv=None):
     unknown = set(phases) - set(PHASES + EXTRA_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    if "sim" in phases and "serve" not in phases:
+        ap.error("phase sim replays the serve phase's server: add serve")
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2829,12 +3080,18 @@ def main(argv=None):
     if "tune" in phases:
         phase_tune()
     counts = rcounts = dcounts = None
+    # Profiles that the serve phases measured (the sim headline's zoo).
+    measured = []
     if {"model", "serve", "profile"} & set(phases):
         p32, p8 = _build_params()
         if "model" in phases:
             phase_model(p32, p8)
         if "serve" in phases:
-            counts = phase_serve(p32, p8)
+            counts, served = phase_serve(p32, p8)
+            measured += served["profiles"]
+            if "sim" in phases:
+                phase_sim(served)
+            del served
         if "profile" in phases:
             phase_profile(p32, p8)
         del p32, p8
@@ -2843,14 +3100,18 @@ def main(argv=None):
         rparams = _recurrent_params()
         if "recurrent" in phases:
             phase_recurrent(rparams)
-            rcounts = phase_serve_recurrent(rparams)
+            rcounts, profs = phase_serve_recurrent(rparams)
+            measured += profs
         if "profile_recurrent" in phases:
             phase_profile_recurrent(rparams)
         del rparams
         torch.cuda.empty_cache()
     if "dense" in phases:
         phase_dense()
-        dcounts = phase_serve_dense()
+        dcounts, profs = phase_serve_dense()
+        measured += profs
+    if "sim" in phases:
+        phase_sim_headline(measured)
     if "profile_dense" in phases:
         phase_profile_dense()
     tcounts = phase_train() if "train" in phases else None

@@ -27,7 +27,10 @@ COPIED = ["core/registry.py", "core/selection.py", "core/profiles.py",
           "configs/gemma2_9b.py", "configs/yi_9b.py",
           "configs/deepseek_coder_33b.py", "configs/musicgen_large.py",
           "configs/chameleon_34b.py", "data/pipeline.py",
-          "data/__init__.py"]
+          "data/__init__.py", "serving/trace.py", "serving/simulator.py",
+          "serving/cluster.py"]
+# Committed data the port copies byte for byte.
+COPIED_DATA = ["configs/traces/reference_fleet.jsonl"]
 # ... except these, which the port rewrites in torch (selection.py).
 REWRITTEN = {"cnnselect_batch", "_BATCH_JIT", "_jit_cnnselect_batch",
              "CNNSelectPolicy.select_batch", "CNNSelectPolicy.__doc__"}
@@ -81,6 +84,12 @@ def test_numpy_copies_equal_reference(rel):
             continue
         assert a.get(name) == b.get(name), name
     assert "cnnselect_batch" in b and "CNNSelectPolicy.select_batch" in b
+
+
+@pytest.mark.parametrize("rel", COPIED_DATA)
+def test_data_copies_equal_reference(rel):
+    want = (SRC / "repro" / rel).read_bytes()
+    assert (SRC / "repro_torch" / rel).read_bytes() == want
 
 
 def test_no_jax_or_reference_imports_in_source():
