@@ -6,9 +6,10 @@
 
 Phases (each prints its results, one line each):
   build    card name and power limit, torch version, nvcc build of the
-           three kernels from src/repro_torch/csrc (with ptxas's
-           registers and spills of the flash, decode and prefill int8
-           kernels; a spill in flash or decode fails the run)
+           four kernels from src/repro_torch/csrc (with ptxas's
+           registers and spills of the flash, decode, prefill int8 and
+           queue_scan kernels; a spill in flash, decode or queue_scan
+           fails the run)
   kernels  every kernel against its plain PyTorch version on the card at
            the serving path's full-width shapes (fp32 and bf16; flash
            and decode also at the heads of yi_9b, gemma2_9b and
@@ -31,7 +32,29 @@ Phases (each prints its results, one line each):
            bound (attention: counted on the rows it attends), the plain
            version's time and one PyTorch library call's time; decode
            (with its split plan) and the decode int8 shapes also with
-           their K/V or weights cold in L2
+           their K/V or weights cold in L2; queue_scan (the scan
+           engine's open-loop queue recurrence) against its plain
+           version bit for bit at 50000 requests on 1, 2, 8 and 40
+           servers and at 2000 on 1600 (free times in the device
+           buffer), with and without ties, and timed at 10 million
+           requests on 2 servers beside its bound (its dependent chain
+           at the fp64 add latency the card measures)
+  scan     simulate(engine="scan") on the card (no model): on
+           benchmarks/engine_scale.py's workload (ArrayFleet(1000),
+           reactive controller, greedy_nw, t_sla 350, seed 11) and on
+           the open-loop case (lte_outage_fleet, reactive, cnnselect,
+           500 Hz, 2 servers; queue_scan must launch), 50000 requests
+           each, exact against the python engine (selections, modes,
+           hedges, fallbacks, cold starts and switch events equal,
+           latencies within 1e-9 relative); at ArrayFleet(100000) x 1
+           million requests for pctl:90 (top layout), pctl:50 (sbuf) and
+           the reactive controller, and with no fleet at 2000 requests
+           for pctl:90 (the rolling layout), bit for bit against the
+           same run on the CPU (scan_device("cpu")); requests/s at
+           100000 x 1 million (median of 3 after a warm run), the column
+           program's CUDA-event span, its kernel time and launches
+           (torch.profiler), and the python engine's rate at 100000 x
+           50000
   model    full-width stablelm-1.6b (fp32 and int8) through prefill and
            teacher-forced decode on the "cuda" path against the "naive"
            path (for int8: on the dequantized weights, so no int8
@@ -127,6 +150,11 @@ Phases (each prints its results, one line each):
            goes (the train phase's model and batch): the whole step and
            its loss and grads alone, wall and device time, launches, the
            kernels that take the most
+  scan_full
+           (only when asked for) simulate(engine="scan") at 1 million
+           devices x 10 million requests (reactive), once; and the
+           no-fleet reactive run's wall (D = 1: 2000 rows of launches)
+           through scan on the card, scan on the CPU and python
   tune     (only when asked for) the prefill int8 path's variants side
            by side: the source as it is, each tile's ring 2 <-> 3 stages
            deep, each tile forced, built from csrc/int8_matmul.cu with
@@ -148,6 +176,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -159,10 +188,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "model", "serve", "sim", "recurrent",
+PHASES = ("build", "kernels", "scan", "model", "serve", "sim", "recurrent",
           "dense", "train")
 EXTRA_PHASES = ("profile", "profile_recurrent", "profile_dense",
-                "profile_train", "tune")
+                "profile_train", "tune", "scan_full")
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth; fp32 on the
 # CUDA cores, where decode attention and the decode int8 path compute;
@@ -288,7 +317,33 @@ KERNEL_META = {
     "int8_matmul": dict(
         source="src/repro_torch/csrc/int8_matmul.cu",
         replaces="src/repro/kernels/int8_matmul.py:40"),
+    # No Pallas kernel: the reference's open-loop queue lax.scan.
+    "queue_scan": dict(
+        source="src/repro_torch/csrc/queue_scan.cu",
+        replaces="src/repro/serving/scan_engine.py:727"),
 }
+
+# The scan phase: benchmarks/engine_scale.py's workload (an ArrayFleet of
+# the paper's device tiers, the "reactive" controller, greedy_nw, t_sla
+# 350 ms, seed 11) and tests/test_engine.py's open-loop case
+# (lte_outage_fleet, reactive, cnnselect, 500 Hz, 2 servers).
+SCAN_T_SLA, SCAN_SEED = 350.0, 11
+SCAN_EQ_DEVICES, SCAN_EQ_N = 1_000, 50_000
+SCAN_DEVICES, SCAN_N = 100_000, 1_000_000
+SCAN_PY_N = 50_000          # the python engine's run at SCAN_DEVICES
+SCAN_ROLL_N = 2_000         # no fleet: one column of N rows (> 64)
+SCAN_REPS = 3
+SCAN_FULL_DEVICES, SCAN_FULL_N = 1_000_000, 10_000_000
+# queue_scan: checked at QUEUE_N for each server count, and at
+# QUEUE_BIG_N on QUEUE_BIG_SERVERS (more free times than its shared memory
+# holds: they live in the device buffer), timed at QUEUE_TIME_N requests
+# on QUEUE_TIME_SERVERS servers.
+QUEUE_N, QUEUE_SERVERS = 50_000, (1, 2, 8, 40)
+QUEUE_BIG_N, QUEUE_BIG_SERVERS = 2_000, 1_600
+QUEUE_TIME_N, QUEUE_TIME_SERVERS = 10_000_000, 2
+# Bytes a request of the queue recurrence moves: arrival and execution
+# time and three gate bytes in, the wait out.
+QUEUE_BYTES = 8 + 8 + 3 + 8
 
 
 def log(*parts):
@@ -384,7 +439,8 @@ def phase_build():
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     for lib, function in (("int8_matmul", "int8_matmul_prefill"),
                           ("flash_attention", "flash_attention_kernel"),
-                          ("decode_attention", "decode_attention_kernel")):
+                          ("decode_attention", "decode_attention_kernel"),
+                          ("queue_scan", "queue_scan_kernel")):
         if lib not in _build.LOGS:
             log(f"ptxas {function}: registers and spills not reported, as "
                 f"{_build._lib_path(lib)} was built by an earlier process "
@@ -412,7 +468,9 @@ def ptxas_usage(nvcc_log, function):
         m = re.search(r"PfTileILi(\d+)ELi(\d+)E.*?Lb([01])E", name)
         f = re.search(rf"{function}I(?:f|13__nv_bfloat16)Li(\d+)ELb([01])E",
                       name)
-        if m:
+        if function == "queue_scan_kernel":
+            name = function
+        elif m:
             name = (f"{function}<{dtype}, {m[1]}x{m[2]}, "
                     f"{'16-byte copies' if m[3] == '1' else 'element loads'}>")
         elif f:
@@ -1226,6 +1284,102 @@ def phase_kernels(results):
               f"their prefill M")
     for name in ("flash_attention", "decode_attention"):
         log(f"time {name}: {json.dumps(results[name])}")
+    _queue_scan_checks(results)
+
+
+def _queue_inputs(gen, n, ties):
+    """Open-loop queue inputs on the card: arrivals plus uploads (mean
+    gap 2 ms), lognormal execution times and the p95, outage and active
+    gates; with `ties`, bursts of 4 at one instant and equal execution
+    times, so the servers' free times tie."""
+    f64 = dict(dtype=torch.float64, device="cuda")
+    a = torch.cumsum(torch.empty(n, **f64).exponential_(0.5, generator=gen),
+                     0)
+    e = torch.empty(n, **f64).log_normal_(2.0, 0.5, generator=gen)
+    if ties:
+        a = torch.repeat_interleave(a[:(n + 3) // 4], 4)[:n]
+        e = torch.full((n,), 8.0, **f64)
+    gates = [torch.rand(n, generator=gen, device="cuda") < p
+             for p in (0.5, 0.1, 0.9)]
+    return [a, e, *gates]
+
+
+def _sm_clock_mhz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.split()[0])
+
+
+def _queue_scan_checks(results):
+    """queue_scan against its plain version (the host loop) bit for bit
+    at QUEUE_N requests for each server count and at QUEUE_BIG_N on
+    QUEUE_BIG_SERVERS, with and without ties, then timed at QUEUE_TIME_N
+    beside its bound: the larger of its bytes over the HBM rate and its
+    dependent chain, ceil(log2 S) + 2 links a
+    request (the min over S free times, the max, the add) at the fp64
+    add latency the card measures, at its highest SM clock."""
+    from repro_torch.kernels import queue_scan as QS, ref as R
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    thr = 0.05 * SCAN_T_SLA
+    worst = 0.0
+    for n, S in ([(QUEUE_N, S) for S in QUEUE_SERVERS]
+                 + [(QUEUE_BIG_N, QUEUE_BIG_SERVERS)]):
+        for ties in (False, True):
+            cols = _queue_inputs(gen, n, ties)
+            q, h = QS.queue_scan(*cols, S, thr)
+            wq, wh = R.queue_scan_ref(*(c.cpu() for c in cols), S, thr)
+            torch.cuda.synchronize()
+            err = float((q.cpu() - wq).abs().max())
+            worst = max(worst, err)
+            same = torch.equal(q.cpu(), wq) and int(h) == int(wh)
+            log(f"queue_scan N={n} S={S} ties={ties}: hedges "
+                f"{int(h)} (plain {int(wh)}), waiting {int((wq > 0).sum())}"
+                f", max_abs_err={err:.3e} "
+                f"{'bit for bit' if same else 'FAIL'}")
+            require(same, f"queue_scan S={S} ties={ties} bit for bit")
+    N, S = QUEUE_TIME_N, QUEUE_TIME_SERVERS
+    cols = _queue_inputs(gen, N, False)
+    QS.queue_scan(*cols, S, thr)
+    e0, e1 = _events()
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(3):
+        q, h = QS.queue_scan(*cols, S, thr)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / 3
+    host = [c.cpu() for c in cols]
+    t0 = time.perf_counter()
+    wq, wh = R.queue_scan_ref(*host, S, thr)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((q.cpu() - wq).abs().max())
+    require(torch.equal(q.cpu(), wq) and int(h) == int(wh),
+            f"queue_scan N={N} bit for bit")
+    cycles = QS.fp64_add_cycles()
+    clock = _sm_clock_mhz()
+    links = math.ceil(math.log2(S)) + 2
+    chain_ms = N * links * cycles / (clock * 1e6) * 1e3
+    bytes_ms = N * QUEUE_BYTES / PEAK_BYTES_S * 1e3
+    bound_ms, by = ((chain_ms, "operations") if chain_ms >= bytes_ms
+                    else (bytes_ms, "bytes"))
+    results["queue_scan"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+        library_ms=None, max_abs_err=max(worst, err),
+        pins={"bit_for_bit_plain": True},
+        bound_bytes_ms=bytes_ms, bound_chain_ms=chain_ms,
+        fp64_add_cycles=cycles, chain_links=links, sm_clock_mhz=clock,
+        cycles_per_request=ms * 1e-3 * clock * 1e6 / N,
+        shape=f"N={N} S={S} fp64 (ms: CUDA events, 3 calls); plain_ms: "
+              f"the host loop (kernels.ref.queue_scan_ref), one call; "
+              f"library_ms: no PyTorch call computes the recurrence; "
+              f"bound_ms: the dependent chain ({links} fp64 links a "
+              f"request at {cycles:.2f} cycles, {clock:.0f} MHz) over "
+              f"bytes ({QUEUE_BYTES} B a request at 3.35 TB/s); checked "
+              f"bit for bit at N={QUEUE_N} for S in {QUEUE_SERVERS} and "
+              f"at N={QUEUE_BIG_N} for S={QUEUE_BIG_SERVERS}, "
+              f"with and without ties")
+    log(f"time queue_scan: {json.dumps(results['queue_scan'])}")
 
 
 # --------------------------------------------------------------------------
@@ -1872,6 +2026,218 @@ def phase_sim_headline(profiles):
         f"{HEADLINE_N} requests a point): {json.dumps(out)} in "
         f"{time.perf_counter() - t0:.1f} s")
     return out
+
+
+# --------------------------------------------------------------------------
+# Phase: scan (simulate(engine="scan") on the card)
+# --------------------------------------------------------------------------
+
+def _simulate(engine, n, fleet=None, device=None, **kw):
+    """(SimResult, host wall s) of one simulate() call on benchmarks/
+    engine_scale.py's settings (greedy_nw unless kw names a policy); the
+    scan engine under scan_device(device) when one is given, else on
+    the card."""
+    from repro_torch.configs.paper_zoo import paper_profiles
+    from repro_torch.serving import scan_engine as se
+    from repro_torch.serving.simulator import SimConfig, simulate
+    kw.setdefault("policy", "greedy_nw")
+    cfg = SimConfig(t_sla=SCAN_T_SLA, n_requests=n, seed=SCAN_SEED,
+                    fleet=fleet, engine=engine, **kw)
+    ctx = se.scan_device(device) if device else contextlib.nullcontext()
+    with ctx:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simulate(paper_profiles(), cfg)
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _same_decisions(a, b, label):
+    """tests/test_engine.py's equivalence: selections, modes, hedges,
+    fallbacks, cold starts and switch events equal; latencies within
+    1e-9 relative, each event's ref and level within 1e-6. Returns the
+    largest relative latency difference."""
+    require(list(a.selections) == list(b.selections), f"{label} selections")
+    rel = np.abs(a.latencies - b.latencies) / np.abs(b.latencies)
+    require(bool((rel <= 1e-9).all()), f"{label} latencies within 1e-9")
+    for k in ("hedges", "fallbacks", "cold_starts"):
+        require(getattr(a, k) == getattr(b, k), f"{label} {k}")
+    require(list(a.modes if a.modes is not None else []) ==
+            list(b.modes if b.modes is not None else []), f"{label} modes")
+    ea, eb = a.switch_events or [], b.switch_events or []
+    require(len(ea) == len(eb), f"{label} switch events")
+    for x, y in zip(ea, eb):
+        require(all(x[k] == y[k] for k in ("request", "device", "from", "to",
+                                           "alarm")), f"{label} event {x}")
+        require(all(abs(x[k] - y[k]) <= 1e-6 * abs(y[k])
+                    for k in ("ref", "level")), f"{label} event {x}")
+    return float(rel.max())
+
+
+def _bit_identical(a, b, label):
+    """Every output of two scan runs bit for bit."""
+    require(np.array_equal(a.selections, b.selections),
+            f"{label} selections")
+    require(np.array_equal(a.latencies, b.latencies), f"{label} latencies")
+    require((a.modes is None) == (b.modes is None) and (
+        a.modes is None or np.array_equal(a.modes, b.modes)),
+        f"{label} modes")
+    require((a.switch_events or []) == (b.switch_events or []),
+            f"{label} switch events")
+    for k in ("hedges", "fallbacks", "cold_starts", "attainment",
+              "accuracy"):
+        require(getattr(a, k) == getattr(b, k), f"{label} {k}")
+
+
+@contextlib.contextmanager
+def _scan_probe():
+    """Records, while it is open, the percentile layout of each pctl
+    bank the column program builds and the CUDA-event span (ms) of each
+    program call on the card."""
+    from repro_torch.serving import scan_engine as se
+    init, prog = se._core_init, se._program
+    seen = {"layouts": [], "program_ms": []}
+
+    def core_init(desc, D, dev, n_rows=None):
+        st = init(desc, D, dev, n_rows)
+        if desc.kind == "pctl":
+            seen["layouts"].append((desc.param, n_rows, se._layout(st)))
+        return st
+
+    def program(*args):
+        if args[2].device.type != "cuda":
+            return prog(*args)
+        e0, e1 = _events()
+        e0.record()
+        out = prog(*args)
+        e1.record()
+        e1.synchronize()
+        seen["program_ms"].append(e0.elapsed_time(e1))
+        return out
+
+    se._core_init, se._program = core_init, program
+    try:
+        yield seen
+    finally:
+        se._core_init, se._program = init, prog
+
+
+def phase_scan():
+    """simulate(engine="scan") on the card: exact against the python
+    engine at SCAN_EQ_N requests (the engine_scale workload, and the
+    open-loop case through queue_scan), bit for bit against the CPU at
+    SCAN_DEVICES x SCAN_N in each percentile layout and under the
+    controller, then its requests/s. Returns the phase's launch counts
+    (the open-loop run's)."""
+    from repro_torch.kernels.queue_scan import queue_scan
+    from repro_torch.serving.fleet import ArrayFleet
+    t_phase = time.perf_counter()
+    # -- against the python engine ----------------------------------------
+    fleet = lambda: ArrayFleet(SCAN_EQ_DEVICES, seed=SCAN_SEED)
+    py, t_py = _simulate("python", SCAN_EQ_N, fleet(), controller="reactive")
+    sc, t_sc = _simulate("scan", SCAN_EQ_N, fleet(), controller="reactive")
+    rel = _same_decisions(py, sc, "scan engine_scale")
+    log(f"scan engine_scale D={SCAN_EQ_DEVICES} N={SCAN_EQ_N}: scan on the "
+        f"card equals python (max rel latency diff {rel:.3e}; "
+        f"{len(sc.switch_events or [])} switch events, "
+        f"{sc.fallbacks} fallbacks, {sc.cold_starts} cold starts); python "
+        f"{t_py:.3f} s, scan {t_sc:.3f} s")
+    open_kw = dict(controller="reactive", policy="cnnselect",
+                   arrival_rate_hz=500.0, n_servers=2)
+    py, t_py = _simulate("python", SCAN_EQ_N, "lte_outage_fleet", **open_kw)
+    queue_scan.launches = 0
+    sc, t_sc = _simulate("scan", SCAN_EQ_N, "lte_outage_fleet", **open_kw)
+    counts = {"queue_scan": queue_scan.launches}
+    require(counts["queue_scan"] > 0, "the open-loop scan run launched "
+                                      "queue_scan")
+    rel = _same_decisions(py, sc, "scan open loop")
+    require(sc.hedges > 0, "the open-loop run hedges")
+    log(f"scan open loop (lte_outage_fleet, cnnselect, 500 Hz, 2 servers) "
+        f"N={SCAN_EQ_N}: scan on the card equals python (max rel latency "
+        f"diff {rel:.3e}; {sc.hedges} hedges, "
+        f"{len(sc.switch_events or [])} switch events); queue_scan "
+        f"launches {counts['queue_scan']}; python {t_py:.3f} s, scan "
+        f"{t_sc:.3f} s")
+    # -- the card against the CPU, bit for bit ----------------------------
+    big = lambda: ArrayFleet(SCAN_DEVICES, seed=SCAN_SEED)
+    cases = (("pctl:90", dict(t_estimator="pctl:90"), big, SCAN_N, "top"),
+             ("pctl:50", dict(t_estimator="pctl:50"), big, SCAN_N, "sbuf"),
+             ("reactive", dict(controller="reactive"), big, SCAN_N, "top"),
+             ("pctl:90 no fleet", dict(t_estimator="pctl:90"), lambda: None,
+              SCAN_ROLL_N, "buf"))
+    walls = {}
+    for label, kw, make, n, layout in cases:
+        with _scan_probe() as seen:
+            card, t_card = _simulate("scan", n, make(), **kw)
+        cpu, t_cpu = _simulate("scan", n, make(), device="cpu", **kw)
+        _bit_identical(card, cpu, f"scan {label}")
+        layouts = sorted({lay for _, _, lay in seen["layouts"]})
+        require(layouts == [layout], f"scan {label} layout {layouts}")
+        L = seen["layouts"][0][1]
+        walls[label] = (t_card, t_cpu)
+        log(f"scan {label} D={SCAN_DEVICES if n == SCAN_N else 1} N={n}: card "
+            f"equals CPU bit for bit (selections, latencies, modes, "
+            f"{len(card.switch_events or [])} switch events); L={L}, "
+            f"layout {layout}; card {t_card:.3f} s (program "
+            f"{sum(seen['program_ms']):.3f} ms), CPU {t_cpu:.3f} s")
+    # -- requests/s at SCAN_DEVICES x SCAN_N (reactive, after the warm run
+    # above) ----------------------------------------------------------------
+    runs = []
+    for _ in range(SCAN_REPS):
+        with _scan_probe() as seen:
+            _, t = _simulate("scan", SCAN_N, big(), controller="reactive")
+        runs.append((t, sum(seen["program_ms"])))
+    t_med, p_med = sorted(runs)[len(runs) // 2]
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _simulate("scan", SCAN_N, big(), controller="reactive")
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in ev if not e.key.startswith("Memcpy")]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    launches = sum(e.count for e in kern)
+    _, t_pyd = _simulate("python", SCAN_PY_N, big(), controller="reactive")
+    out = dict(
+        scan_reqs_per_s=SCAN_N / t_med, walls_s=[t for t, _ in runs],
+        program_ms=p_med, host_share=1.0 - p_med / (t_med * 1e3),
+        program_kernel_ms=dev_ms, program_launches=launches,
+        python_reqs_per_s=SCAN_PY_N / t_pyd)
+    log(f"scan times D={SCAN_DEVICES} N={SCAN_N} reactive (median of "
+        f"{SCAN_REPS} after a warm run; program_ms: CUDA-event span of the "
+        f"column program; program_kernel_ms and launches: torch.profiler, "
+        f"one more run; python at N={SCAN_PY_N}): {json.dumps(out)}")
+    log(f"scan phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_scan_full():
+    """simulate(engine="scan") at SCAN_FULL_DEVICES x SCAN_FULL_N
+    (reactive), once, on the card; then the walls of the launch-bound
+    no-fleet case (one column of SCAN_ROLL_N rows, reactive) through scan
+    on the card, scan on the CPU and the python engine."""
+    from repro_torch.serving.fleet import ArrayFleet
+    torch.cuda.reset_peak_memory_stats()
+    with _scan_probe() as seen:
+        res, t = _simulate("scan", SCAN_FULL_N,
+                           ArrayFleet(SCAN_FULL_DEVICES, seed=SCAN_SEED),
+                           controller="reactive")
+    require(np.isfinite(res.latencies).all()
+            and len(res.latencies) == SCAN_FULL_N, "scan_full latencies")
+    log(f"scan_full D={SCAN_FULL_DEVICES} N={SCAN_FULL_N} reactive, one "
+        f"run: {t:.3f} s, {SCAN_FULL_N / t:.1f} requests/s; program "
+        f"{sum(seen['program_ms']):.3f} ms (L={seen['layouts'][0][1]}); "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; "
+        f"attainment {res.attainment:.6f}, "
+        f"{len(res.switch_events or [])} switch events")
+    walls = {}
+    for label, engine, kw in (("card", "scan", {}),
+                              ("cpu", "scan", dict(device="cpu")),
+                              ("python", "python", {})):
+        _, walls[f"d1_{label}_wall_s"] = _simulate(
+            engine, SCAN_ROLL_N, None, controller="reactive", **kw)
+    log(f"scan no fleet D=1 N={SCAN_ROLL_N} reactive, one run each: "
+        f"{json.dumps(walls)}")
 
 
 # --------------------------------------------------------------------------
@@ -3079,6 +3445,9 @@ def main(argv=None):
         phase_kernels(results)
     if "tune" in phases:
         phase_tune()
+    scounts = phase_scan() if "scan" in phases else None
+    if "scan_full" in phases:
+        phase_scan_full()
     counts = rcounts = dcounts = None
     # Profiles that the serve phases measured (the sim headline's zoo).
     measured = []
@@ -3122,6 +3491,18 @@ def main(argv=None):
         kernels = []
         for name, meta in KERNEL_META.items():
             r = results[name]
+            if name == "queue_scan":
+                # Its main path: the scan phase's open-loop simulate.
+                kernels.append(dict(
+                    name=name, route="cuda", source=meta["source"],
+                    replaces=meta["replaces"],
+                    launches=None if scounts is None else scounts[name],
+                    **{k: r[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "pins", "bound_bytes_ms",
+                        "bound_chain_ms", "fp64_add_cycles", "chain_links",
+                        "sm_clock_mhz", "cycles_per_request", "shape")}))
+                continue
             kernels.append(dict(
                 name=name, route="cuda", source=meta["source"],
                 replaces=meta["replaces"],

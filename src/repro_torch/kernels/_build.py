@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 
-SOURCES = ("flash_attention", "decode_attention", "int8_matmul")
+SOURCES = ("flash_attention", "decode_attention", "int8_matmul",
+           "queue_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

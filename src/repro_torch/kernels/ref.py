@@ -81,3 +81,40 @@ def int8_matmul_ref(x, w_q, w_scale):
     Dequantizes before the product (the kernel scales after it)."""
     w = w_q.float() * w_scale.reshape(1, -1).float()
     return (x.float() @ w).to(x.dtype)
+
+
+def queue_scan_ref(arrive, exec_t, p95, outage, active, n_servers: int,
+                   thr: float):
+    """The open-loop queue recurrence, one request at a time in request
+    order (the python engine's loop, serving/simulator.py): arrive, exec_t
+    (N,) float64; p95, outage, active (N,) bool. Each active request
+    takes the first server with the least free time, starts at
+    max(arrive, free), waits start - arrive and frees the server at
+    start + exec_t; an inactive one waits 0. A hedge counts where the
+    request is active, n_servers > 1, and either its p95 gate is set and
+    it waits more than thr, or its outage gate is set. Returns the
+    (N,) float64 waits and the hedge count (0-d int64) on arrive's
+    device. A Python loop over floats (fp64 max, add and subtract, as
+    the kernel)."""
+    a, e = arrive.tolist(), exec_t.tolist()
+    p, o, act = p95.tolist(), outage.tolist(), active.tolist()
+    free = [0.0] * n_servers
+    wait = [0.0] * len(a)
+    hedges = 0
+    hedgeable = n_servers > 1
+    for i in range(len(a)):
+        if not act[i]:
+            continue
+        s, m = 0, free[0]
+        for k in range(1, n_servers):
+            if free[k] < m:
+                s, m = k, free[k]
+        start = m if m > a[i] else a[i]
+        w = start - a[i]
+        if hedgeable and ((p[i] and w > thr) or o[i]):
+            hedges += 1
+        free[s] = start + e[i]
+        wait[i] = w
+    dev = arrive.device
+    return (torch.tensor(wait, dtype=torch.float64, device=dev),
+            torch.tensor(hedges, dtype=torch.int64, device=dev))

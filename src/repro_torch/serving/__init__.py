@@ -5,8 +5,10 @@ plane (router, batching, network, fleet, control, metrics, stack), and
 the simulation plane: the event-driven request simulator (paper §5.2
 simulations), the multi-tenant cluster and trace capture and replay.
 
-The scan engines (`simulate(..., engine="scan")` and
-`Cluster(..., engine="scan")`) belong to a later slice of the port."""
+`simulate(..., engine="scan")` runs the scan engine
+(`serving/scan_engine.py`): the control plane as a column program on
+the card, or on the CPU inside `scan_engine.scan_device("cpu")`.
+`Cluster(..., engine="scan")` belongs to a later slice of the port."""
 
 from repro_torch.serving.cluster import (Cluster, ClusterPlacer,
                                          TenantColumns, TenantSpec,

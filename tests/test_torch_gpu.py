@@ -887,3 +887,84 @@ def test_chunked_attention_captures_without_the_skip(cuda):
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
     assert not out[:, :600].any()
+
+
+def _queue_cols(n, seed, ties, device):
+    """Open-loop queue inputs: arrivals plus uploads, execution times and
+    the three gates; with `ties`, bursts at one instant and equal
+    execution times, so servers' free times tie."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.cumsum(torch.empty(n, dtype=torch.float64).exponential_(
+        0.5, generator=g), 0)
+    e = torch.empty(n, dtype=torch.float64).log_normal_(2.0, 0.5,
+                                                        generator=g)
+    if ties:
+        a = torch.repeat_interleave(a[:(n + 3) // 4], 4)[:n]
+        e = torch.full((n,), 8.0, dtype=torch.float64)
+    gates = [torch.rand(n, generator=g) < p for p in (0.5, 0.1, 0.9)]
+    return [t.to(device) for t in (a, e, *gates)]
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("n_servers", [1, 2, 3, 8, 9, 40, 1600])
+@pytest.mark.parametrize("n", [1, 1023, 1024, 5000])
+def test_queue_scan_matches_plain(cuda, n, n_servers, ties):
+    """The kernel against the plain loop bit for bit, across chunk edges
+    (1024 requests a stage), with the free times in shared memory
+    (S <= 1536) and in the device buffer (S = 1600)."""
+    from repro_torch.kernels.queue_scan import queue_scan
+    cols = _queue_cols(n, n_servers, ties, "cuda")
+    before = queue_scan.launches
+    q, h = queue_scan(*cols, n_servers, 17.5)
+    want_q, want_h = R.queue_scan_ref(*(t.cpu() for t in cols), n_servers,
+                                      17.5)
+    torch.cuda.synchronize()
+    assert queue_scan.launches == before + 1
+    assert torch.equal(q.cpu(), want_q)
+    assert int(h) == int(want_h)
+
+
+def test_queue_scan_checks_its_operands(cuda):
+    from repro_torch.kernels.queue_scan import queue_scan
+    cols = _queue_cols(64, 0, False, "cuda")
+    with pytest.raises(ValueError, match="n_servers >= 1"):
+        queue_scan(*cols, 0, 1.0)
+    with pytest.raises(ValueError, match="mixed devices"):
+        queue_scan(cols[0].cpu(), *cols[1:], 2, 1.0)
+    with pytest.raises(ValueError, match="float64"):
+        queue_scan(cols[0].float(), *cols[1:], 2, 1.0)
+
+
+@pytest.mark.parametrize("detector", ["cusum", "ph"])
+@pytest.mark.parametrize("fixed_scale", [None, 20.0])
+@pytest.mark.parametrize("L", [12, 30, 80])
+def test_scan_program_card_equals_cpu(cuda, L, fixed_scale, detector):
+    """The scan engine's column program on the card gives the CPU's bits:
+    a controller with a fixed (a device-tensor divisor) or learned scale
+    over a mode table with an identity lane, an EWMA and pctl:90 (the top
+    layout at L = 12, sorted at 30, rolling at 80) through a lag ring."""
+    import numpy as np
+    from repro_torch.serving import control, scan_engine as se
+    rng = np.random.default_rng(L)
+    D = 500
+    mean = rng.uniform(40.0, 200.0, D)
+    t = rng.lognormal(np.log(mean), 0.3, (L, D))
+    t[L // 3:2 * L // 3, ::2] *= 3.0
+    valid = np.arange(L)[:, None] < rng.integers(L // 2, L + 1, D)[None, :]
+    t = np.where(valid, t, 0.0)
+    det = (control.CusumDetector(threshold=4.0, drift=0.5, scale=fixed_scale)
+           if detector == "cusum" else
+           control.PageHinkleyDetector(threshold=6.0, delta=0.25,
+                                       scale=fixed_scale))
+    ctrl = control.AdaptiveController(
+        modes=("stationary", "cautious", "degraded"), detector=det,
+        monitor="ewma:0.2", cooldown=3, start=1)
+    desc = se.ctrl_desc_from_controller(
+        ctrl, lag=2, table_specs=(None, "ewma:0.3", "pctl:90"))
+    outs = [se._program(None, desc, *(torch.from_numpy(a).to(dev) for a in
+                                      (t, valid, mean)))
+            for dev in ("cuda", "cpu")]
+    torch.cuda.synchronize()
+    assert outs[0]["switched"].any()
+    for k, v in outs[1].items():
+        assert torch.equal(outs[0][k].cpu(), v), k

@@ -28,12 +28,34 @@ COPIED = ["core/registry.py", "core/selection.py", "core/profiles.py",
           "configs/deepseek_coder_33b.py", "configs/musicgen_large.py",
           "configs/chameleon_34b.py", "data/pipeline.py",
           "data/__init__.py", "serving/trace.py", "serving/simulator.py",
-          "serving/cluster.py"]
+          "serving/cluster.py", "serving/scan_engine.py"]
 # Committed data the port copies byte for byte.
 COPIED_DATA = ["configs/traces/reference_fleet.jsonl"]
-# ... except these, which the port rewrites in torch (selection.py).
-REWRITTEN = {"cnnselect_batch", "_BATCH_JIT", "_jit_cnnselect_batch",
-             "CNNSelectPolicy.select_batch", "CNNSelectPolicy.__doc__"}
+# ... except these members, which the port rewrites in torch: in
+# selection.py the batched CNNSelect; in scan_engine.py the column
+# program (jitted lax.scan there, a loop of (D,) tensor ops here, with
+# its device context), `_run_program`, the open-loop queue recurrence of
+# `scan_event_phase` (the queue_scan kernel) and the module docstring.
+# The imports of a rewritten module hold the reference's.
+REWRITTEN = {
+    "core/selection.py": {"cnnselect_batch", "_BATCH_JIT",
+                          "_jit_cnnselect_batch",
+                          "CNNSelectPolicy.select_batch",
+                          "CNNSelectPolicy.__doc__", "__doc__"},
+    "serving/scan_engine.py": {
+        "__doc__", "<other>", "F64", "_DEVICE", "scan_device", "_device",
+        "_unfused", "_layout", "_take", "_core_init", "_core_estimate",
+        "_core_observe", "_bank_init", "_bank_step", "_det_init",
+        "_det_step", "_COMPILED", "_compile", "_program", "_run_program",
+        "scan_event_phase"},
+}
+# Members a rewritten module must define.
+REQUIRED = {
+    "core/selection.py": {"cnnselect_batch", "CNNSelectPolicy.select_batch"},
+    "serving/scan_engine.py": {"scan_device", "_program", "_run_program",
+                               "scan_event_phase", "scan_plan_batch",
+                               "_pack_columns", "_assemble_events"},
+}
 
 _IMPORT = re.compile(r"^(\s*)(from|import) repro\.", re.M)
 
@@ -75,15 +97,15 @@ def _members(tree):
 def test_numpy_copies_equal_reference(rel):
     want = _renamed((SRC / "repro" / rel).read_text())
     got = (SRC / "repro_torch" / rel).read_text()
-    if rel != "core/selection.py":
+    if rel not in REWRITTEN:
         assert got == want
         return
     a, b = _members(ast.parse(want)), _members(ast.parse(got))
     for name in set(a) | set(b):
-        if name in REWRITTEN or name == "__doc__":
-            continue
-        assert a.get(name) == b.get(name), name
-    assert "cnnselect_batch" in b and "CNNSelectPolicy.select_batch" in b
+        if name not in REWRITTEN[rel]:
+            assert a.get(name) == b.get(name), name
+    assert set(a.get("<other>", [])) <= set(b.get("<other>", []))
+    assert REQUIRED[rel] <= set(b)
 
 
 @pytest.mark.parametrize("rel", COPIED_DATA)
@@ -145,6 +167,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card,
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.measured import build_model, build_zoo
     from repro_torch.launch import train
+    from repro_torch.configs.paper_zoo import paper_profiles
+    from repro_torch.serving.simulator import SimConfig, simulate
     from repro_torch.training.checkpoint import (restore_checkpoint,
                                                  save_checkpoint)
     from repro_torch.training.optim import adamw, constant_schedule
@@ -164,7 +188,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card,
              lambda: init_train_state(cfg, opt),
              lambda: train.main(["--reduced", "--steps", "1"]),
              lambda: restore_checkpoint(ck, {"w": torch.zeros(2,
-                                                             device="meta")})]
+                                                             device="meta")}),
+             lambda: simulate(paper_profiles(), SimConfig(
+                 t_sla=300.0, n_requests=20, t_estimator="ewma:0.2",
+                 engine="scan")),
+             lambda: simulate(paper_profiles(), SimConfig(
+                 t_sla=300.0, n_requests=20, arrival_rate_hz=50.0,
+                 n_servers=2, engine="scan"))]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

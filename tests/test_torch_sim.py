@@ -10,6 +10,7 @@ from_capture`), `simulate` / `attainment_improvement`
 as a distribution. Last, the sim-to-real loop of chip_smoke's sim phase
 on the port's own CPU server: capture, disk, replay."""
 
+import dataclasses
 import importlib.util
 import pathlib
 
@@ -324,19 +325,33 @@ def test_tenant_columns_as_reference():
             a.device_name(c) for c in range(len(a.col_tenant))]
 
 
-# -- engine="scan" (queue of the scan engines) ------------------------------
+# -- engine="scan" ----------------------------------------------------------
 
 @pytest.mark.parametrize("pkg", ["reference", "port"])
 def test_engine_scan_raises_import_error(pkg):
-    """The scan engines are not ported; the reference's raise
-    ImportError on this tree wherever they run their jax program (an
-    estimator here: `enable_x64` is gone from jax.experimental)."""
+    """The reference's scan engines raise ImportError on this tree
+    wherever they run their jax program (an estimator here:
+    `enable_x64` is gone from jax.experimental). The port's `simulate`
+    computes with the scan engine (on the CPU here, under
+    `scan_device("cpu")`; tests/test_torch_scan.py holds it against the
+    reference's); its cluster scan engine is not ported, so
+    `Cluster(engine="scan")` raises ImportError in both."""
     s, z, c, st = ((rsim, rzoo, rcluster, rstack) if pkg == "reference"
                    else (tsim, tzoo, tcluster, tstack))
-    with pytest.raises(ImportError):
-        s.simulate(z.paper_profiles(), s.SimConfig(
-            t_sla=300.0, n_requests=50, network="lte_outages",
-            t_estimator="ewma:0.2", engine="scan"))
+    cfg = s.SimConfig(t_sla=300.0, n_requests=50, network="lte_outages",
+                      t_estimator="ewma:0.2", engine="scan")
+    if pkg == "reference":
+        with pytest.raises(ImportError):
+            s.simulate(z.paper_profiles(), cfg)
+    else:
+        from repro_torch.serving.scan_engine import scan_device
+        with scan_device("cpu"):
+            got = s.simulate(z.paper_profiles(), cfg)
+        want = s.simulate(z.paper_profiles(),
+                          dataclasses.replace(cfg, engine="python"))
+        assert list(got.selections) == list(want.selections)
+        np.testing.assert_allclose(got.latencies, want.latencies,
+                                   rtol=1e-9)
     reps = [st.SimReplicaStack(z.paper_profiles(CLUSTER_MODELS), seed=1)]
     cl = c.Cluster(reps, "consumer_burst", engine="scan")
     with pytest.raises(ImportError):
