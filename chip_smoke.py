@@ -6,9 +6,9 @@
 
 Phases (each prints its results, one line each):
   build    card name and power limit, torch version, nvcc build of the
-           four kernels from src/repro_torch/csrc (with ptxas's
-           registers and spills of the flash, decode, prefill int8 and
-           queue_scan kernels; a spill in flash, decode or queue_scan
+           five kernels from src/repro_torch/csrc (with ptxas's
+           registers and spills of the flash, decode, prefill int8,
+           queue_scan and cluster_scan kernels; a spill in any but int8
            fails the run)
   kernels  every kernel against its plain PyTorch version on the card at
            the serving path's full-width shapes (fp32 and bf16; flash
@@ -38,7 +38,13 @@ Phases (each prints its results, one line each):
            servers and at 2000 on 1600 (free times in the device
            buffer), with and without ties, and timed at 10 million
            requests on 2 servers beside its bound (its dependent chain
-           at the fp64 add latency the card measures)
+           at the fp64 add latency the card measures); cluster_scan (the
+           scan cluster engine's request-axis scan) against its plain
+           version bit for bit, every column and carry, at 2000 requests
+           for R x K in 3 x 3, 1 x 1, 8 x 5 and 260 x 5 (its state past
+           shared memory), with and without a budget and ties, and timed
+           at 200000 requests on 3 x 3 beside its bound (its dependent
+           chain through the free times)
   scan     simulate(engine="scan") on the card (no model): on
            benchmarks/engine_scale.py's workload (ArrayFleet(1000),
            reactive controller, greedy_nw, t_sla 350, seed 11) and on
@@ -55,6 +61,20 @@ Phases (each prints its results, one line each):
            program's CUDA-event span, its kernel time and launches
            (torch.profiler), and the python engine's rate at 100000 x
            50000
+  cluster  Cluster(engine="scan") on the card (no model), on
+           benchmarks/cluster_scale.py's workload (3 replicas of
+           mobilenetv1_025, mobilenetv1_10 and inceptionv3, 12 Hz, seed
+           7): bit for bit against the python Cluster (events, metrics
+           rows, n_active, replica zoo / queue / RNG state, controller
+           events) at its check row (1000 devices, 2000 requests, a
+           250e6-byte budget: evictions; cluster_scan must launch), the
+           python capture replayed through both engines, and on each
+           tenant mix at 2000 requests, 40 Hz (hedges); the card
+           against the CPU bit for bit at 1000 x 20000; requests/s at
+           SWEEP_RUN's points (scan 1000 x 20000 and 100000 x 200000,
+           median of 3 after a warm run, collect_rows=False, split into
+           host precompute, column program, kernel and assembly; python
+           at 20000 and 50000 requests)
   model    full-width stablelm-1.6b (fp32 and int8) through prefill and
            teacher-forced decode on the "cuda" path against the "naive"
            path (for int8: on the dequantized weights, so no int8
@@ -155,6 +175,11 @@ Phases (each prints its results, one line each):
            devices x 10 million requests (reactive), once; and the
            no-fleet reactive run's wall (D = 1: 2000 rows of launches)
            through scan on the card, scan on the CPU and python
+  profile_cluster
+           (only when asked for) cluster_scan's cycles a request at
+           200000 requests on input variants that each drop or add one
+           part of the step (the cnnselect choice, the hedge leg, the
+           replicas of the placement, eviction)
   tune     (only when asked for) the prefill int8 path's variants side
            by side: the source as it is, each tile's ring 2 <-> 3 stages
            deep, each tile forced, built from csrc/int8_matmul.cu with
@@ -188,10 +213,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "scan", "model", "serve", "sim", "recurrent",
-          "dense", "train")
+PHASES = ("build", "kernels", "scan", "cluster", "model", "serve", "sim",
+          "recurrent", "dense", "train")
 EXTRA_PHASES = ("profile", "profile_recurrent", "profile_dense",
-                "profile_train", "tune", "scan_full")
+                "profile_train", "tune", "scan_full", "profile_cluster")
 
 # NVIDIA H100 SXM data-sheet peaks (dense): HBM bandwidth; fp32 on the
 # CUDA cores, where decode attention and the decode int8 path compute;
@@ -321,6 +346,10 @@ KERNEL_META = {
     "queue_scan": dict(
         source="src/repro_torch/csrc/queue_scan.cu",
         replaces="src/repro/serving/scan_engine.py:727"),
+    # No Pallas kernel: the reference's cluster lax.scan.
+    "cluster_scan": dict(
+        source="src/repro_torch/csrc/cluster_scan.cu",
+        replaces="src/repro/serving/cluster_engine.py:527"),
 }
 
 # The scan phase: benchmarks/engine_scale.py's workload (an ArrayFleet of
@@ -344,6 +373,28 @@ QUEUE_TIME_N, QUEUE_TIME_SERVERS = 10_000_000, 2
 # Bytes a request of the queue recurrence moves: arrival and execution
 # time and three gate bytes in, the wait out.
 QUEUE_BYTES = 8 + 8 + 3 + 8
+
+# The cluster phase: benchmarks/cluster_scale.py's workload (3 replicas of
+# CLUSTER_MODELS behind a Cluster over scale_tenant_mix's fleets, 12 Hz,
+# seed 7): its check row (1000 devices, 2000 requests, a 250e6-byte
+# budget, so eviction runs) and SWEEP_RUN's points (devices, python
+# requests, scan requests; no budget, collect_rows=False); and
+# tests/test_cluster_engine.py's tenant mixes at 2000 requests, 40 Hz,
+# 250e6 bytes (hedges run).
+CLUSTER_MODELS = ("mobilenetv1_025", "mobilenetv1_10", "inceptionv3")
+CLUSTER_REPLICAS, CLUSTER_RATE, CLUSTER_SEED = 3, 12.0, 7
+CLUSTER_BUDGET = int(250e6)
+CLUSTER_CHECK_DEVICES, CLUSTER_CHECK_N = 1_000, 2_000
+CLUSTER_MIX_N, CLUSTER_MIX_RATE = 2_000, 40.0
+CLUSTER_CPU_DEVICES, CLUSTER_CPU_N = 1_000, 20_000   # card against the CPU
+CLUSTER_SWEEP = ((1_000, 20_000, 20_000), (100_000, 50_000, 200_000))
+CLUSTER_REPS = 3
+# cluster_scan: checked bit for bit at CLUSTER_KERNEL_N requests for each
+# (R, K) (the last past its shared-memory state: more than 256 replicas
+# and 1024 entries), timed at CLUSTER_TIME_N on the main path's 3 x 3.
+CLUSTER_KERNEL_SHAPES = ((3, 3), (1, 1), (8, 5), (260, 5))
+CLUSTER_KERNEL_N = 2_000
+CLUSTER_TIME_N = 200_000
 
 
 def log(*parts):
@@ -440,7 +491,8 @@ def phase_build():
     for lib, function in (("int8_matmul", "int8_matmul_prefill"),
                           ("flash_attention", "flash_attention_kernel"),
                           ("decode_attention", "decode_attention_kernel"),
-                          ("queue_scan", "queue_scan_kernel")):
+                          ("queue_scan", "queue_scan_kernel"),
+                          ("cluster_scan", "cluster_scan_kernel")):
         if lib not in _build.LOGS:
             log(f"ptxas {function}: registers and spills not reported, as "
                 f"{_build._lib_path(lib)} was built by an earlier process "
@@ -468,7 +520,7 @@ def ptxas_usage(nvcc_log, function):
         m = re.search(r"PfTileILi(\d+)ELi(\d+)E.*?Lb([01])E", name)
         f = re.search(rf"{function}I(?:f|13__nv_bfloat16)Li(\d+)ELb([01])E",
                       name)
-        if function == "queue_scan_kernel":
+        if function in ("queue_scan_kernel", "cluster_scan_kernel"):
             name = function
         elif m:
             name = (f"{function}<{dtype}, {m[1]}x{m[2]}, "
@@ -1285,6 +1337,7 @@ def phase_kernels(results):
     for name in ("flash_attention", "decode_attention"):
         log(f"time {name}: {json.dumps(results[name])}")
     _queue_scan_checks(results)
+    _cluster_scan_checks(results)
 
 
 def _queue_inputs(gen, n, ties):
@@ -1380,6 +1433,195 @@ def _queue_scan_checks(results):
               f"at N={QUEUE_BIG_N} for S={QUEUE_BIG_SERVERS}, "
               f"with and without ties")
     log(f"time queue_scan: {json.dumps(results['queue_scan'])}")
+
+
+# --------------------------------------------------------------------------
+# cluster_scan (the scan cluster engine's request-axis scan)
+# --------------------------------------------------------------------------
+
+def cluster_inputs(seed, R, K, n, *, has_budget, kinds="mixed", ties=False,
+                   tight=True, degr_p=0.5):
+    """xs, init and const of the cluster scan as numpy arrays of the
+    reference program's dtypes (src/repro/serving/cluster_engine.py:626-
+    642), drawn from `seed`: arrivals in bursts at one instant, two
+    upload times, equal free times, capacities and last uses where
+    `ties`; a budget of a fifth of all models' bytes where `tight`
+    (several victims for one request), of 60% otherwise; a share
+    `degr_p` of degraded requests (which hedge). `kinds`: "mixed"
+    (cnnselect, random and precomputed replicas in turn), "cnn" (every
+    replica cnnselect, as the cluster's SimReplicaStacks) or "det"
+    (precomputed only: no CDF, one u and ri column)."""
+    rng = np.random.default_rng(seed)
+    E = R * K
+    gap = rng.exponential(12.0, n)
+    if ties:
+        gap = np.where(rng.random(n) < 0.5, 0.0, np.round(gap))
+    arr = np.cumsum(gap)
+    ti = (rng.choice([20.0, 35.0], n) if ties
+          else rng.lognormal(np.log(30.0), 0.5, n))
+    slac = rng.choice([150.0, 300.0, 600.0], n)
+    has = rng.random(n) < 0.8
+    kind = {"mixed": np.array([(1, 2, 0)[r % 3] for r in range(R)]),
+            "cnn": np.ones(R), "det": np.zeros(R)}[kinds].astype(np.int32)
+    cnn, rnd = bool((kind == 1).any()), bool((kind == 2).any())
+    p = rng.random((n, R, K)) + 1e-3
+    cdf = np.cumsum(p, axis=-1)
+    cdf /= cdf[..., -1:]
+    mu = rng.uniform(5.0, 120.0, E)
+    if ties:
+        mu = np.round(mu)
+    sizes = rng.integers(10_000_000, 120_000_000, E).astype(np.int64)
+    hot0 = rng.random(E) < 0.5
+    xs = dict(
+        arr=arr, ti=ti, slac=slac, slar=np.where(has, slac, 1e9), has=has,
+        prio=rng.choice([0.0, 1.0, 2.0], n),
+        od=np.where(rng.random(n) < 0.7, rng.uniform(50.0, 400.0, n), 0.0),
+        degr=rng.random(n) < degr_p,
+        al=rng.choice([-1, 0, 0, 0, 0, 1], n).astype(np.int8),
+        sel=rng.integers(0, K, (n, R)).astype(np.int32),
+        cdf=cdf if cnn else np.zeros((n, R, 0)))
+    const = dict(
+        mu=mu, sgp=rng.uniform(0.5, 10.0, E) + 1e-9, p1mu=0.1 * mu,
+        xmu=np.where(rng.random(E) < 0.7, rng.uniform(10.0, 300.0, E),
+                     0.0),
+        xsgp=rng.uniform(0.0, 20.0, E) + 1e-9, sizes=sizes,
+        cap=(rng.choice([1.0, 2.0], R) if ties
+             else rng.uniform(0.5, 3.0, R)),
+        speed=rng.choice([1.0, 1.5, 2.0], R), kind=kind,
+        u=rng.random((R, n if cnn else 1)),
+        ri=rng.integers(0, K, (R, n if rnd else 1)).astype(np.int32),
+        z=rng.standard_normal((R, 2 * n)),
+        budget=np.int64(int(sizes.sum() * (0.2 if tight else 0.6))
+                        if has_budget else 0),
+        min_active=np.int32(1), hedge=np.bool_(True),
+        shed_factor=np.float64(rng.choice([0.5, 1.0, 1e9])),
+        headroom=np.float64(0.25))
+    last0 = (np.where(hot0, -5.0, 0.0) if ties
+             else np.where(hot0, -rng.uniform(0.0, 50.0, E), 0.0))
+    init = (np.full(R, 10.0) if ties else rng.uniform(0.0, 50.0, R),
+            hot0, last0, np.int64(sizes[hot0].sum()),
+            np.int32(rng.integers(1, R + 1)), np.zeros(R, np.int32),
+            np.zeros(R, np.int32))
+    return xs, init, const
+
+
+def cluster_tensors(xs, init, const, device):
+    """cluster_inputs' arrays as tensors of the same dtypes on device."""
+    t = lambda a: torch.from_numpy(np.array(a)).to(device)
+    return ({k: t(v) for k, v in xs.items()}, tuple(t(v) for v in init),
+            {k: t(v) for k, v in const.items()})
+
+
+def cluster_scan_diff(got, want):
+    """(names of the outputs that differ in any bit, largest absolute
+    difference of the float ones) between two cluster_scan results
+    ((carry, ys) pairs, any devices)."""
+    (gc, gy), (wc, wy) = got, want
+    pairs = ([(k, gy.get(k), wy[k]) for k in wy]
+             + list(zip(("free", "hot", "last", "hb", "n_act", "up", "zp"),
+                        gc, wc)))
+    bad, err = [], 0.0
+    for name, g, w in pairs:
+        if g is None:
+            bad.append(name)
+            continue
+        g, w = g.cpu(), w.cpu()
+        if w.dtype == torch.float64:
+            same = g.dtype == w.dtype and torch.equal(
+                g.view(torch.int64), w.view(torch.int64))
+            err = max(err, float((g - w).abs().max()) if g.numel() else 0.0)
+        else:
+            same = g.dtype == w.dtype and torch.equal(g, w)
+        if not same:
+            bad.append(name)
+    return bad + sorted(set(gy) - set(wy)), err
+
+
+def _cluster_scan_checks(results):
+    """cluster_scan against its plain version (the host loop) bit for bit
+    at CLUSTER_KERNEL_N requests for each (R, K) of CLUSTER_KERNEL_SHAPES,
+    with and without a budget, with and without ties, then timed at
+    CLUSTER_TIME_N requests on the main path's 3 replicas x 3 models
+    (every replica cnnselect, no budget) beside its bound: the larger of
+    its bytes (every input read once, every output written once) over
+    the HBM rate and its dependent fp64 chain through the free times,
+    ceil(log2 R) + 5 links a request (a delay's subtract and max, the
+    min over the active replicas, the compare that picks the replica,
+    the max with the arrival, the add of the execution time), at the
+    fp64 add latency the card measures, at its highest SM clock."""
+    from repro_torch.kernels import cluster_scan as CS, queue_scan as QS
+    from repro_torch.kernels import ref as R
+    worst = 0.0
+    for (Rn, K), has_budget, ties in itertools.product(
+            CLUSTER_KERNEL_SHAPES, (True, False), (False, True)):
+        xs, init, const = cluster_inputs(
+            Rn * 100 + K * 10 + ties, Rn, K, CLUSTER_KERNEL_N,
+            has_budget=has_budget, ties=ties)
+        dev = cluster_tensors(xs, init, const, "cuda")
+        got = CS.cluster_scan(*dev, has_budget)
+        want = R.cluster_scan_ref(*cluster_tensors(xs, init, const, "cpu"),
+                                  has_budget)
+        torch.cuda.synchronize()
+        bad, err = cluster_scan_diff(got, want)
+        worst = max(worst, err)
+        ys = want[1]
+        log(f"cluster_scan R={Rn} K={K} N={CLUSTER_KERNEL_N} budget="
+            f"{has_budget} ties={ties}: hedged {int(ys['hedged'].sum())}, "
+            f"shed {int(ys['shed'].sum())}, victims "
+            f"{int((ys['vict1'] >= 0).sum()) if has_budget else 0}, "
+            f"max_abs_err={err:.3e} "
+            f"{'bit for bit' if not bad else 'FAIL ' + ','.join(bad)}")
+        require(not bad, f"cluster_scan R={Rn} K={K} budget={has_budget} "
+                         f"ties={ties} bit for bit: {bad}")
+    N = CLUSTER_TIME_N
+    xs, init, const = cluster_inputs(N, 3, 3, N, has_budget=False,
+                                     kinds="cnn", tight=False)
+    dev = cluster_tensors(xs, init, const, "cuda")
+    CS.cluster_scan(*dev, False)
+    e0, e1 = _events()
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(3):
+        got = CS.cluster_scan(*dev, False)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / 3
+    host = cluster_tensors(xs, init, const, "cpu")
+    t0 = time.perf_counter()
+    want = R.cluster_scan_ref(*host, False)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bad, err = cluster_scan_diff(got, want)
+    require(not bad, f"cluster_scan N={N} bit for bit: {bad}")
+    nbytes = (sum(t.nbytes for t in host[0].values())
+              + sum(t.nbytes for t in host[1])
+              + sum(t.nbytes for t in host[2].values())
+              + sum(t.nbytes for t in want[0])
+              + sum(t.nbytes for t in want[1].values()))
+    cycles = QS.fp64_add_cycles()
+    clock = _sm_clock_mhz()
+    links = math.ceil(math.log2(3)) + 5
+    chain_ms = N * links * cycles / (clock * 1e6) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    bound_ms, by = ((chain_ms, "operations") if chain_ms >= bytes_ms
+                    else (bytes_ms, "bytes"))
+    results["cluster_scan"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+        library_ms=None, max_abs_err=max(worst, err),
+        pins={"bit_for_bit_plain": True},
+        bound_bytes_ms=bytes_ms, bound_chain_ms=chain_ms,
+        fp64_add_cycles=cycles, chain_links=links, sm_clock_mhz=clock,
+        cycles_per_request=ms * 1e-3 * clock * 1e6 / N,
+        shape=f"N={N} R=3 K=3, every replica cnnselect, no budget (ms: "
+              f"CUDA events, 3 calls); plain_ms: the host loop "
+              f"(kernels.ref.cluster_scan_ref), one call; library_ms: no "
+              f"PyTorch call computes the scan; bound_ms: the dependent "
+              f"chain through the free times ({links} fp64 links a "
+              f"request at {cycles:.2f} cycles, {clock:.0f} MHz) over "
+              f"bytes ({nbytes} B in and out at 3.35 TB/s); checked bit "
+              f"for bit at N={CLUSTER_KERNEL_N} for (R, K) in "
+              f"{CLUSTER_KERNEL_SHAPES}, with and without a budget and "
+              f"ties")
+    log(f"time cluster_scan: {json.dumps(results['cluster_scan'])}")
 
 
 # --------------------------------------------------------------------------
@@ -2238,6 +2480,273 @@ def phase_scan_full():
             engine, SCAN_ROLL_N, None, controller="reactive", **kw)
     log(f"scan no fleet D=1 N={SCAN_ROLL_N} reactive, one run each: "
         f"{json.dumps(walls)}")
+
+
+# --------------------------------------------------------------------------
+# Phase: cluster (Cluster(engine="scan") on the card)
+# --------------------------------------------------------------------------
+
+def make_cluster(mix, engine, budget=None):
+    """benchmarks/cluster_scale.py's cluster: CLUSTER_REPLICAS
+    SimReplicaStacks of CLUSTER_MODELS (seeds 100, 101, ...) serving
+    `mix` with the full control plane."""
+    from repro_torch.configs.paper_zoo import paper_profiles
+    from repro_torch.serving.cluster import Cluster
+    from repro_torch.serving.stack import SimReplicaStack
+    reps = [SimReplicaStack(paper_profiles(list(CLUSTER_MODELS)),
+                            seed=100 + i, name=f"r{i}")
+            for i in range(CLUSTER_REPLICAS)]
+    return Cluster(reps, mix, memory_budget_bytes=budget, engine=engine)
+
+
+def cluster_state(cl):
+    """Everything a later run could observe of a cluster's replicas:
+    queue clocks, zoo placement state, cold-start counts and the exact
+    RNG streams."""
+    out = []
+    for r in cl.replicas:
+        pol_rng = getattr(r.router.policy, "rng", None)
+        out.append(dict(
+            free=r._server_free,
+            zoo={n: (e.hot, e.last_used, e.loads, e.evictions)
+                 for n, e in r.router.zoo.entries.items()},
+            colds=r.router.zoo.total_cold_starts,
+            rng=r.rng.gen.bit_generator.state["state"],
+            block=(r.rng._i, r.rng._z.tolist()),
+            pol_rng=(None if pol_rng is None
+                     else pol_rng.bit_generator.state["state"])))
+    return out
+
+
+def _same_cluster(a, b, label):
+    """tests/test_cluster_engine.py's equality: events, metrics rows,
+    n_active, replica state and the controller's events, bit for bit."""
+    require(a.events == b.events, f"{label} events")
+    require(a.metrics.records == b.metrics.records, f"{label} metrics rows")
+    require(a.n_active == b.n_active, f"{label} n_active")
+    require(cluster_state(a) == cluster_state(b), f"{label} replica state")
+    require(a.controller is None
+            or a.controller.events == b.controller.events,
+            f"{label} controller events")
+
+
+def _event_kinds(cl):
+    kinds = {}
+    for e in cl.events:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    return kinds
+
+
+@contextlib.contextmanager
+def _cluster_probe():
+    """Records, while it is open, the parts of each scan_cluster_run on
+    the card: the column program's CUDA-event span and host seconds, the
+    cluster_scan call's CUDA-event span and its host-clock interval."""
+    from repro_torch.serving import cluster_engine as ce
+    prog, scan = ce._run_program, ce.cluster_scan
+    seen = {"program_ms": 0.0, "program_s": 0.0, "kernel_ms": 0.0,
+            "scan_call": None}
+
+    def program(*args):
+        e0, e1 = _events()
+        t0 = time.perf_counter()
+        e0.record()
+        out = prog(*args)
+        e1.record()
+        e1.synchronize()
+        seen["program_ms"] += e0.elapsed_time(e1)
+        seen["program_s"] += time.perf_counter() - t0
+        return out
+
+    def kernel(*args):
+        e0, e1 = _events()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        out = scan(*args)
+        e1.record()
+        e1.synchronize()
+        seen["kernel_ms"] += e0.elapsed_time(e1)
+        seen["scan_call"] = (t0, time.perf_counter())
+        return out
+
+    ce._run_program, ce.cluster_scan = program, kernel
+    try:
+        yield seen
+    finally:
+        ce._run_program, ce.cluster_scan = prog, scan
+
+
+def phase_cluster():
+    """Cluster(engine="scan") on the card: bit for bit against the
+    python Cluster at cluster_scale's check row (evictions; the python
+    capture replayed through both engines) and on each tenant mix
+    (hedges), bit for bit against the same run on the CPU at
+    CLUSTER_CPU_DEVICES x CLUSTER_CPU_N, then requests/s at SWEEP_RUN's
+    points beside the python engine's, split into host precompute, the
+    column program, the kernel and the assembly after it. Returns the
+    check row's launch counts."""
+    from repro_torch.configs.paper_zoo import TENANT_MIXES, scale_tenant_mix
+    from repro_torch.kernels.cluster_scan import cluster_scan
+    from repro_torch.serving import cluster_engine as ce
+    from repro_torch.serving.cluster import (capture_run,
+                                             make_tenant_columns,
+                                             make_tenant_workload,
+                                             replay_events)
+    from repro_torch.serving.scan_engine import scan_device
+    t_phase = time.perf_counter()
+    # -- the check row: the card against python, and the replay ----------
+    mix = scale_tenant_mix(CLUSTER_CHECK_DEVICES)
+    wl = make_tenant_workload(mix, n_requests=CLUSTER_CHECK_N,
+                              rate_hz=CLUSTER_RATE, seed=CLUSTER_SEED)
+    py = make_cluster(mix, "python", CLUSTER_BUDGET)
+    trace = capture_run(py, wl)
+    sc = make_cluster(mix, "scan", CLUSTER_BUDGET)
+    cluster_scan.launches = 0
+    sc.run(wl)
+    counts = {"cluster_scan": cluster_scan.launches}
+    require(counts["cluster_scan"] > 0, "the cluster check run launched "
+                                        "cluster_scan")
+    _same_cluster(py, sc, "cluster check")
+    kinds = _event_kinds(py)
+    require(kinds.get("evict", 0) > 0, "the cluster check row evicts")
+    replay = {e: replay_events(trace, lambda e=e: make_cluster(
+        mix, e, CLUSTER_BUDGET)) for e in ("python", "scan")}
+    require(all(replay.values()), f"cluster replay {replay}")
+    log(f"cluster check D={CLUSTER_CHECK_DEVICES} N={CLUSTER_CHECK_N} "
+        f"budget {CLUSTER_BUDGET}: scan on the card equals python bit for "
+        f"bit (events {json.dumps(kinds)}, metrics rows, n_active "
+        f"{sc.n_active}, replica state, controller events); the python "
+        f"capture replays through python and the card; cluster_scan "
+        f"launches {counts['cluster_scan']}; attainment "
+        f"{py.metrics.summary()['attainment']}")
+    # -- the tenant mixes: hedges ------------------------------------------
+    for name in sorted(TENANT_MIXES):
+        wl = make_tenant_workload(name, n_requests=CLUSTER_MIX_N,
+                                  rate_hz=CLUSTER_MIX_RATE, seed=CLUSTER_SEED)
+        py = make_cluster(name, "python", CLUSTER_BUDGET)
+        py.run(wl)
+        sc = make_cluster(name, "scan", CLUSTER_BUDGET)
+        sc.run(wl)
+        _same_cluster(py, sc, f"cluster {name}")
+        hedged = sum(r["hedged"] for r in py.metrics.records)
+        require(hedged > 0, f"cluster {name} hedges")
+        log(f"cluster {name} N={CLUSTER_MIX_N} {CLUSTER_MIX_RATE} Hz budget "
+            f"{CLUSTER_BUDGET}: scan on the card equals python bit for bit "
+            f"({hedged} hedged, events {json.dumps(_event_kinds(py))})")
+    # -- the card against the CPU ------------------------------------------
+    mix = scale_tenant_mix(CLUSTER_CPU_DEVICES)
+    wl = make_tenant_columns(mix, n_requests=CLUSTER_CPU_N,
+                             rate_hz=CLUSTER_RATE, seed=CLUSTER_SEED)
+    walls = {}
+    runs = {}
+    for label, ctx in (("card", contextlib.nullcontext()),
+                       ("cpu", scan_device("cpu"))):
+        runs[label] = make_cluster(mix, "scan", CLUSTER_BUDGET)
+        t0 = time.perf_counter()
+        with ctx:
+            runs[label].run(wl)
+        walls[label] = time.perf_counter() - t0
+    _same_cluster(runs["card"], runs["cpu"], "cluster card vs CPU")
+    log(f"cluster D={CLUSTER_CPU_DEVICES} N={CLUSTER_CPU_N} budget "
+        f"{CLUSTER_BUDGET}: card equals CPU bit for bit (events "
+        f"{json.dumps(_event_kinds(runs['card']))}, metrics rows, replica "
+        f"state); card {walls['card']:.3f} s, CPU (the plain loop) "
+        f"{walls['cpu']:.3f} s")
+    # -- requests/s at SWEEP_RUN's points ------------------------------------
+    for devices, n_py, n_scan in CLUSTER_SWEEP:
+        mix = scale_tenant_mix(devices)
+        wl = make_tenant_columns(mix, n_requests=n_scan,
+                                 rate_hz=CLUSTER_RATE, seed=CLUSTER_SEED)
+        ce.scan_cluster_run(make_cluster(mix, "scan"), wl,
+                            collect_rows=False)
+        timed = []
+        for _ in range(CLUSTER_REPS):
+            cl = make_cluster(mix, "scan")
+            with _cluster_probe() as seen:
+                t0 = time.perf_counter()
+                res = ce.scan_cluster_run(cl, wl, collect_rows=False)
+                t1 = time.perf_counter()
+            a, b = seen["scan_call"]
+            timed.append(dict(
+                wall_s=t1 - t0, precompute_s=a - t0 - seen["program_s"],
+                program_ms=seen["program_ms"], kernel_ms=seen["kernel_ms"],
+                kernel_call_s=b - a, assembly_s=t1 - b))
+        med = sorted(timed, key=lambda r: r["wall_s"])[len(timed) // 2]
+        wl_py = make_tenant_columns(mix, n_requests=n_py,
+                                    rate_hz=CLUSTER_RATE, seed=CLUSTER_SEED)
+        py = make_cluster(mix, "python")
+        t0 = time.perf_counter()
+        py.run(wl_py)
+        t_py = time.perf_counter() - t0
+        out = dict(
+            devices=devices, scan_requests=n_scan,
+            scan_reqs_per_s=n_scan / med["wall_s"],
+            walls_s=[r["wall_s"] for r in timed], **med,
+            kernel_cycles_per_request=(med["kernel_ms"] * 1e-3
+                                       * _sm_clock_mhz() * 1e6 / n_scan),
+            attainment=float(res.ok.mean()), sheds=int(res.shed.sum()),
+            hedges=int(res.hedged.sum()), events=len(cl.events),
+            python_requests=n_py, python_reqs_per_s=n_py / t_py,
+            python_attainment=py.metrics.summary()["attainment"])
+        log(f"cluster times D={devices} (scan median of {CLUSTER_REPS} after "
+            f"a warm run, collect_rows=False; precompute_s: host time "
+            f"before the kernel call outside the column program; "
+            f"program_ms: its CUDA-event span; kernel_ms: cluster_scan's "
+            f"CUDA-event span; assembly_s: events and writeback after "
+            f"it; python at its own N): {json.dumps(out)}")
+    log(f"cluster phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# The profile_cluster phase's input variants: (label, R, K, kinds, budget,
+# degraded share), each at CLUSTER_TIME_N requests.
+CLUSTER_PROFILE_CASES = (
+    ("main", 3, 3, "cnn", False, 0.5),
+    ("precomputed choice", 3, 3, "det", False, 0.5),
+    ("no hedge", 3, 3, "cnn", False, 0.0),
+    ("precomputed, no hedge", 3, 3, "det", False, 0.0),
+    ("one replica", 1, 1, "det", False, 0.0),
+    ("8 replicas", 8, 3, "cnn", False, 0.5),
+    ("32 replicas", 32, 3, "cnn", False, 0.5),
+    ("tight budget", 3, 3, "cnn", True, 0.5),
+)
+
+
+def phase_profile_cluster():
+    """Where a cluster_scan request's cycles go: the kernel timed (CUDA
+    events, median of 3 after a warm call) on input variants that drop
+    one part of the step each (the cnnselect choice's u and CDF reads,
+    the hedge leg, the placement's replicas) or add one (eviction), at
+    CLUSTER_TIME_N requests, in cycles a request at the highest SM
+    clock."""
+    from repro_torch.kernels import cluster_scan as CS
+    clock = _sm_clock_mhz()
+    N = CLUSTER_TIME_N
+    rows = {}
+    for label, Rn, K, kinds, budget, degr in CLUSTER_PROFILE_CASES:
+        xs, init, const = cluster_inputs(N, Rn, K, N, has_budget=budget,
+                                         kinds=kinds, tight=True,
+                                         degr_p=degr)
+        dev = cluster_tensors(xs, init, const, "cuda")
+        _, ys = CS.cluster_scan(*dev, budget)
+        ms = []
+        for _ in range(3):
+            e0, e1 = _events()
+            e0.record()
+            CS.cluster_scan(*dev, budget)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        med = sorted(ms)[1]
+        rows[label] = dict(
+            R=Rn, K=K, kinds=kinds, budget=budget, ms=med,
+            cycles_per_request=med * 1e-3 * clock * 1e6 / N,
+            hedged=int(ys["hedged"].sum()), shed=int(ys["shed"].sum()),
+            victims=(int((ys["vict1"] >= 0).sum()
+                         + (ys["vict2"] >= 0).sum()) if budget else 0))
+        log(f"profile_cluster {label}: {json.dumps(rows[label])}")
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -3448,6 +3957,9 @@ def main(argv=None):
     scounts = phase_scan() if "scan" in phases else None
     if "scan_full" in phases:
         phase_scan_full()
+    ccounts = phase_cluster() if "cluster" in phases else None
+    if "profile_cluster" in phases:
+        phase_profile_cluster()
     counts = rcounts = dcounts = None
     # Profiles that the serve phases measured (the sim headline's zoo).
     measured = []
@@ -3491,12 +4003,15 @@ def main(argv=None):
         kernels = []
         for name, meta in KERNEL_META.items():
             r = results[name]
-            if name == "queue_scan":
-                # Its main path: the scan phase's open-loop simulate.
+            if name in ("queue_scan", "cluster_scan"):
+                # Their main paths: the scan phase's open-loop simulate,
+                # the cluster phase's check-row Cluster.run.
+                path_counts = scounts if name == "queue_scan" else ccounts
                 kernels.append(dict(
                     name=name, route="cuda", source=meta["source"],
                     replaces=meta["replaces"],
-                    launches=None if scounts is None else scounts[name],
+                    launches=(None if path_counts is None
+                              else path_counts[name]),
                     **{k: r[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms", "pins", "bound_bytes_ms",

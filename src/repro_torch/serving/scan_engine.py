@@ -227,6 +227,15 @@ def _unpack(p: _Packed, mat, dtype=np.float64) -> np.ndarray:
     return out
 
 
+def _unfused(prod, xp=None):
+    """A product that feeds a sum, rounded on its own. The reference
+    guards such products against XLA's fused multiply-add; eager torch
+    rounds every op on its own, so here it is the product itself. (The
+    cluster engine imports it as the reference does; its CUDA kernel
+    rounds those products with __dmul_rn.)"""
+    return prod
+
+
 
 # --------------------------------------------------------------------------
 # The array program's percentile depth

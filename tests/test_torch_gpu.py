@@ -968,3 +968,99 @@ def test_scan_program_card_equals_cpu(cuda, L, fixed_scale, detector):
     assert outs[0]["switched"].any()
     for k, v in outs[1].items():
         assert torch.equal(outs[0][k].cpu(), v), k
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its cluster_scan inputs and checks)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("has_budget", [True, False])
+@pytest.mark.parametrize("shape", [(3, 3), (1, 1), (8, 5), (260, 5)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_cluster_scan_matches_plain(cuda, shape, has_budget, ties):
+    """The kernel against the plain loop bit for bit, every column and
+    carry, at chip_smoke's shapes (260 x 5: past its shared-memory state,
+    in the carry buffers), across chunk edges (256 requests a stage)."""
+    from repro_torch.kernels.cluster_scan import cluster_scan
+    cs = _chip_smoke()
+    Rn, K = shape
+    xs, init, const = cs.cluster_inputs(Rn + 7 * K + ties, Rn, K, 700,
+                                        has_budget=has_budget, ties=ties)
+    before = cluster_scan.launches
+    got = cluster_scan(*cs.cluster_tensors(xs, init, const, "cuda"),
+                       has_budget)
+    want = R.cluster_scan_ref(*cs.cluster_tensors(xs, init, const, "cpu"),
+                              has_budget)
+    torch.cuda.synchronize()
+    assert cluster_scan.launches == before + 1
+    bad, err = cs.cluster_scan_diff(got, want)
+    assert not bad and err == 0.0, bad
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257])
+def test_cluster_scan_chunk_edges(cuda, n):
+    from repro_torch.kernels.cluster_scan import cluster_scan
+    cs = _chip_smoke()
+    xs, init, const = cs.cluster_inputs(n, 3, 3, n, has_budget=True,
+                                        kinds="cnn")
+    got = cluster_scan(*cs.cluster_tensors(xs, init, const, "cuda"), True)
+    want = R.cluster_scan_ref(*cs.cluster_tensors(xs, init, const, "cpu"),
+                              True)
+    torch.cuda.synchronize()
+    assert cs.cluster_scan_diff(got, want) == ([], 0.0)
+
+
+def test_cluster_engine_on_card_equals_python(cuda):
+    """Cluster(engine="scan") on the card against the python Cluster bit
+    for bit on a tenant mix whose run evicts and hedges."""
+    from repro_torch.kernels.cluster_scan import cluster_scan
+    from repro_torch.serving.cluster import make_tenant_workload
+    cs = _chip_smoke()
+    wl = make_tenant_workload("consumer_burst", n_requests=2000,
+                              rate_hz=40.0, seed=7)
+    py = cs.make_cluster("consumer_burst", "python", int(250e6))
+    py.run(wl)
+    card = cs.make_cluster("consumer_burst", "scan", int(250e6))
+    before = cluster_scan.launches
+    card.run(wl)
+    assert cluster_scan.launches == before + 1
+    assert any(r["hedged"] for r in py.metrics.records)
+    assert any(e["kind"] == "evict" for e in py.events)
+    assert card.events == py.events
+    assert card.metrics.records == py.metrics.records
+    assert card.n_active == py.n_active
+    assert cs.cluster_state(card) == cs.cluster_state(py)
+
+
+def test_cluster_scan_launch_failure_raises(cuda, monkeypatch):
+    """The launcher refuses what the kernel cannot run, and a failed
+    launch raises: no plain loop in its place, no launch counted."""
+    from repro_torch.kernels import _build, cluster_scan as CS
+    stream = torch.cuda.current_stream().cuda_stream
+    err = CS._lib().cluster_scan_fwd(CS._C.byref(CS._Args()), stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="cluster_scan"):
+        _build.check(err, "cluster_scan")
+    cs = _chip_smoke()
+    args = cs.cluster_tensors(*cs.cluster_inputs(0, 3, 3, 64,
+                                                 has_budget=True), "cuda")
+
+    class Failing:
+        @staticmethod
+        def cluster_scan_fwd(*a):
+            return 1      # cudaErrorInvalidValue
+
+    monkeypatch.setattr(CS, "_lib", lambda: Failing)
+    before = CS.cluster_scan.launches
+    with pytest.raises(RuntimeError, match="cluster_scan: CUDA launch "
+                                           "failed"):
+        CS.cluster_scan(*args, True)
+    assert CS.cluster_scan.launches == before

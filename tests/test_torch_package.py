@@ -28,15 +28,19 @@ COPIED = ["core/registry.py", "core/selection.py", "core/profiles.py",
           "configs/deepseek_coder_33b.py", "configs/musicgen_large.py",
           "configs/chameleon_34b.py", "data/pipeline.py",
           "data/__init__.py", "serving/trace.py", "serving/simulator.py",
-          "serving/cluster.py", "serving/scan_engine.py"]
+          "serving/cluster.py", "serving/scan_engine.py",
+          "serving/cluster_engine.py"]
 # Committed data the port copies byte for byte.
 COPIED_DATA = ["configs/traces/reference_fleet.jsonl"]
 # ... except these members, which the port rewrites in torch: in
 # selection.py the batched CNNSelect; in scan_engine.py the column
 # program (jitted lax.scan there, a loop of (D,) tensor ops here, with
 # its device context), `_run_program`, the open-loop queue recurrence of
-# `scan_event_phase` (the queue_scan kernel) and the module docstring.
-# The imports of a rewritten module hold the reference's.
+# `scan_event_phase` (the queue_scan kernel) and the module docstring;
+# in cluster_engine.py the request-axis scan (`_COMPILED` / `_compile`,
+# a jitted lax.scan there, the cluster_scan kernel here), its call in
+# `scan_cluster_run` and the module docstring. The imports of a
+# rewritten module hold the reference's.
 REWRITTEN = {
     "core/selection.py": {"cnnselect_batch", "_BATCH_JIT",
                           "_jit_cnnselect_batch",
@@ -48,6 +52,8 @@ REWRITTEN = {
         "_core_observe", "_bank_init", "_bank_step", "_det_init",
         "_det_step", "_COMPILED", "_compile", "_program", "_run_program",
         "scan_event_phase"},
+    "serving/cluster_engine.py": {"__doc__", "<other>", "_COMPILED",
+                                  "_compile", "scan_cluster_run"},
 }
 # Members a rewritten module must define.
 REQUIRED = {
@@ -55,6 +61,7 @@ REQUIRED = {
     "serving/scan_engine.py": {"scan_device", "_program", "_run_program",
                                "scan_event_phase", "scan_plan_batch",
                                "_pack_columns", "_assemble_events"},
+    "serving/cluster_engine.py": {"scan_cluster_run"},
 }
 
 _IMPORT = re.compile(r"^(\s*)(from|import) repro\.", re.M)
@@ -169,6 +176,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card,
     from repro_torch.launch import train
     from repro_torch.configs.paper_zoo import paper_profiles
     from repro_torch.serving.simulator import SimConfig, simulate
+    from repro_torch.serving.cluster import Cluster, make_tenant_workload
+    from repro_torch.serving.stack import SimReplicaStack
     from repro_torch.training.checkpoint import (restore_checkpoint,
                                                  save_checkpoint)
     from repro_torch.training.optim import adamw, constant_schedule
@@ -194,7 +203,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card,
                  engine="scan")),
              lambda: simulate(paper_profiles(), SimConfig(
                  t_sla=300.0, n_requests=20, arrival_rate_hz=50.0,
-                 n_servers=2, engine="scan"))]
+                 n_servers=2, engine="scan")),
+             lambda: Cluster([SimReplicaStack(paper_profiles(), seed=1)],
+                             "consumer_burst", engine="scan").run(
+                 make_tenant_workload("consumer_burst", n_requests=20,
+                                      rate_hz=40.0))]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -331,11 +331,12 @@ def test_tenant_columns_as_reference():
 def test_engine_scan_raises_import_error(pkg):
     """The reference's scan engines raise ImportError on this tree
     wherever they run their jax program (an estimator here:
-    `enable_x64` is gone from jax.experimental). The port's `simulate`
-    computes with the scan engine (on the CPU here, under
-    `scan_device("cpu")`; tests/test_torch_scan.py holds it against the
-    reference's); its cluster scan engine is not ported, so
-    `Cluster(engine="scan")` raises ImportError in both."""
+    `enable_x64` is gone from jax.experimental). The port's computes
+    with both (on the CPU here, under `scan_device("cpu")`):
+    `simulate(engine="scan")` (tests/test_torch_scan.py holds it against
+    the reference's) and `Cluster(engine="scan")`, which equals the
+    python `Cluster` (tests/test_torch_cluster_engine.py holds it
+    against the reference's)."""
     s, z, c, st = ((rsim, rzoo, rcluster, rstack) if pkg == "reference"
                    else (tsim, tzoo, tcluster, tstack))
     cfg = s.SimConfig(t_sla=300.0, n_requests=50, network="lte_outages",
@@ -352,11 +353,22 @@ def test_engine_scan_raises_import_error(pkg):
         assert list(got.selections) == list(want.selections)
         np.testing.assert_allclose(got.latencies, want.latencies,
                                    rtol=1e-9)
-    reps = [st.SimReplicaStack(z.paper_profiles(CLUSTER_MODELS), seed=1)]
-    cl = c.Cluster(reps, "consumer_burst", engine="scan")
-    with pytest.raises(ImportError):
-        cl.run(c.make_tenant_workload("consumer_burst", n_requests=40,
-                                      rate_hz=40.0, seed=0))
+    wl = c.make_tenant_workload("consumer_burst", n_requests=40,
+                                rate_hz=40.0, seed=0)
+    reps = lambda: [st.SimReplicaStack(z.paper_profiles(CLUSTER_MODELS),
+                                       seed=1)]
+    cl = c.Cluster(reps(), "consumer_burst", engine="scan")
+    if pkg == "reference":
+        with pytest.raises(ImportError):
+            cl.run(wl)
+        return
+    with scan_device("cpu"):
+        cl.run(wl)
+    py = c.Cluster(reps(), "consumer_burst", engine="python")
+    py.run(wl)
+    assert cl.events == py.events and cl.events
+    assert cl.metrics.records == py.metrics.records
+    assert cl.n_active == py.n_active
 
 
 # -- the sim-to-real loop on the port's CPU server --------------------------
