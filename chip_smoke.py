@@ -12,14 +12,14 @@ Phases (each prints its results, one line each):
            fails the run)
   kernels  every kernel against its plain PyTorch version on the card at
            the serving path's full-width shapes (fp32 and bf16; flash
-           and decode also at the heads of yi_9b, gemma2_9b and
-           recurrentgemma-2b as it runs them (16/1/256), decode checked
-           at those of qwen3_moe_235b and unpadded recurrentgemma_2b
-           too; flash and decode also at recurrentgemma-2b's model
-           shapes: prefill at T = 2040 and 2560 with window 2048, its
-           2048-slot ring wrapped; and at the dense models' (deepseek-
-           coder-33b's 64/8/128 heads everywhere the other heads go;
-           gemma2-9b's local layers at T = 4200, window 4096, softcap
+           and decode also at the heads of yi_9b, gemma2_9b,
+           qwen3_moe_235b (64/4/128, rep 16) and recurrentgemma-2b as
+           it runs them (16/1/256), decode checked at unpadded
+           recurrentgemma_2b's too; flash and decode also at
+           recurrentgemma-2b's model shapes: prefill at T = 2040 and
+           2560 with window 2048, its 2048-slot ring wrapped; and at
+           the dense models' (deepseek-coder-33b's 64/8/128 heads
+           everywhere the other heads go; gemma2-9b's local layers at T = 4200, window 4096, softcap
            50, its ring wrapped, its global layers at S = 8192; yi-9b,
            deepseek-coder-33b, chameleon-34b and musicgen-large as
            their runs give them); int8 at the decode M and the serve
@@ -136,6 +136,20 @@ Phases (each prints its results, one line each):
            attention there, against the flash path. Then the dense path:
            CNNSelectServer over gemma2-9b int8 and yi-9b int8, whose graph
            replays must launch every kernel
+  moe      qwen3-moe-235b-a22b in fp32 at published width (d 4096, 64
+           q heads on 4 kv heads, 128 experts top 8, f 1536, vocab
+           151936), its depth cut from 94 to the most layers that keep
+           the phase's peak under 75 GB (6; the cut is logged), batch
+           4, max_seq 1024: the model phase's schedule through the
+           engine, graphs against models.model eagerly on a fresh cache
+           bit for bit, the cuda path against the naive path (a ragged
+           prefill at T = 512 and 16 teacher-forced steps); the step
+           times (prefill at T = 64 and 512, decode; graph and eager)
+           and the MoE FFN's share of a graph decode step; then 6
+           requests through CNNSelectServer with this engine as its one
+           candidate, whose graph replays must launch flash_attention
+           and decode_attention (the experts compute in float only, so
+           no int8 kernel)
   train    the training path (src/repro_torch/launch/train.py) at
            full width and depth: stablelm-1.6b fp32 under
            mixed_precision(adamw(cosine)), as the launcher builds it, 20
@@ -214,7 +228,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "scan", "cluster", "model", "serve", "sim",
-          "recurrent", "dense", "train")
+          "recurrent", "dense", "moe", "train")
 EXTRA_PHASES = ("profile", "profile_recurrent", "profile_dense",
                 "profile_train", "tune", "scan_full", "profile_cluster")
 
@@ -258,15 +272,15 @@ RG = "recurrentgemma_2b_q16"
 RG_HEADS, RG_WINDOW = (16, 1, 256), 2048
 # deepseek-coder-33b's heads as its model runs them (56 q heads padded to
 # tp_pad_heads = 64, on 8 kv heads); chameleon-34b's are the same.
+# qwen3-moe-235b's (src/repro/configs/qwen3_moe_235b.py): 64 q heads on
+# 4 kv heads (rep 16, the most of the reference configs), hd 128.
 FLASH_HEADS = {"stablelm_1_6b": (H, H, HD), "yi_9b": (32, 4, 128),
                "gemma2_9b": (16, 8, 256), RG: RG_HEADS,
-               "deepseek_coder_33b": (64, 8, 128)}
-# Heads of the decode checks: the flash heads, checked and timed, and the
-# most q heads per kv head of the reference configs, checked only
-# (src/repro/configs/qwen3_moe_235b.py, rep 16; recurrentgemma_2b.py,
-# rep 10 at hd 256).
-DECODE_HEADS = dict(FLASH_HEADS, qwen3_moe_235b=(64, 4, 128),
-                    recurrentgemma_2b=(10, 1, 256))
+               "deepseek_coder_33b": (64, 8, 128),
+               "qwen3_moe_235b": (64, 4, 128)}
+# Heads of the decode checks: the flash heads, checked and timed, and
+# recurrentgemma_2b.py's unpadded rep 10 at hd 256, checked only.
+DECODE_HEADS = dict(FLASH_HEADS, recurrentgemma_2b=(10, 1, 256))
 # The recurrent phases: batch, the engines' max_seq (the local layers
 # keep a ring of RG_WINDOW slots), recurrentgemma's prompt lengths (a
 # group at 2040 whose decode steps cross position 2048, where the ring
@@ -296,8 +310,17 @@ G2_GROUPS = ((4200, 24), (1024, 8))
 # past the first 512-key chunk, which is skipped.
 G2_AUTO_VF = 600
 EMBED_T, EMBED_STEPS = 512, 16
-# The card's memory the dense phase may take at its peak, per model.
+# The card's memory the dense and moe phases may take at their peak, per
+# model.
 PEAK_LIMIT_BYTES = 75e9
+# The moe phase: qwen3-moe-235b-a22b (src/repro/configs/qwen3_moe_235b.py)
+# in fp32 at published width, its depth cut to the layers that fit
+# PEAK_LIMIT_BYTES beside its embedding and head and MOE_ACT_BYTES of
+# activations (the experts run one at a time: a prefill of B x T_PREFILL
+# tokens keeps (T, f) per expert, not (T, E, f)), caches and graph pools;
+# MOE_REQUESTS requests through the server; MOE_TIMED calls a step time.
+MOE_ARCH, MOE_ACT_BYTES = "qwen3_moe_235b", 4e9
+MOE_REQUESTS, MOE_TIMED = 6, 3
 # The decode main shape: the ragged prefill's rows (valid_from = T_PREFILL
 # - lengths) 16 tokens on, and the profile's decode step's context.
 DECODE_CPOS, DECODE_VF = T_PREFILL + 16, [0, 212, 383, 475]
@@ -579,10 +602,11 @@ def _close(out, ref, tol):
 
 def _flash_cases():
     """(heads, case name, shape and masks) of the flash checks: the
-    stablelm heads through every mask, the yi_9b, gemma2_9b and
-    deepseek_coder_33b heads with softcap on, a ragged valid_from and a
-    window, and the gemma2_9b heads at a long context (S = 4096, where
-    the fp32 error's margin to its tolerance is thinnest at S = 512)."""
+    stablelm heads through every mask, the yi_9b, gemma2_9b,
+    deepseek_coder_33b and qwen3_moe_235b heads with softcap on, a ragged
+    valid_from and a window, and the gemma2_9b heads at a long context
+    (S = 4096, where the fp32 error's margin to its tolerance is thinnest
+    at S = 512)."""
     T = T_PREFILL
     yield "stablelm_1_6b", "plain", dict(T=T, KV=H, vf=None)
     yield "stablelm_1_6b", "vf mid/edge/full", dict(T=T, KV=H,
@@ -594,7 +618,8 @@ def _flash_cases():
     yield "stablelm_1_6b", "T not a block multiple", dict(
         T=T - 3, KV=H, vf=[0, 5, 100, 1])
     yield "stablelm_1_6b", "GQA rep=4", dict(T=T, KV=8, vf=[0, 37, 64, 300])
-    for heads in ("yi_9b", "gemma2_9b", "deepseek_coder_33b"):
+    for heads in ("yi_9b", "gemma2_9b", "deepseek_coder_33b",
+                  "qwen3_moe_235b"):
         yield heads, "vf + softcap", dict(vf=[0, 37, 64, T], cap=50.0, T=T)
         yield heads, "window + softcap, T not a block multiple", dict(
             vf=[0, 5, 100, 1], cap=50.0, window=128, T=T - 3)
@@ -2927,14 +2952,14 @@ def phase_recurrent(params):
         log(f"recurrent {name}: {time.perf_counter() - t0:.1f} s")
 
 
-def _serve_candidates(tag, engines, acc, n_requests, seed):
+def _serve_candidates(tag, engines, acc, n_requests, seed, kernels=None):
     """Candidates behind CNNSelectServer: profiling, then n_requests
     requests under cnnselect, budgets cycling between each two
     neighbouring candidates' means and a generous one, so the selection
     has a real choice to make. The launch counters are set to 0 just
-    before and read just after: every kernel's launches by graph
-    replays on this path must be > 0. Returns the path's counts and the
-    candidates' measured profiles."""
+    before and read just after: the launches by graph replays on this
+    path of each of `kernels` (every kernel by default) must be > 0.
+    Returns the path's counts and the candidates' measured profiles."""
     from repro_torch.kernels import ops
     from repro_torch.serving.batching import Request
     from repro_torch.serving.server import CNNSelectServer, ServedModel
@@ -2982,7 +3007,7 @@ def _serve_candidates(tag, engines, acc, n_requests, seed):
     log(f"serve {tag} launches: {json.dumps(counts)} (of them graph "
         f"replays: {json.dumps(replayed)}) in "
         f"{time.perf_counter() - t_start:.1f} s")
-    for name in counts:
+    for name in kernels or counts:
         require(replayed[name] > 0,
                 f"{name} launched by a graph replay on the {tag} path")
     del srv
@@ -3028,18 +3053,18 @@ def _peak(label):
     yield
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    log(f"dense {label}: max_memory_allocated {peak / 1e9:.3f} GB (at the "
+    log(f"{label}: max_memory_allocated {peak / 1e9:.3f} GB (at the "
         f"start {start / 1e9:.3f} GB; limit {PEAK_LIMIT_BYTES / 1e9:.0f} "
         f"GB), {time.perf_counter() - t0:.1f} s")
-    require(peak <= PEAK_LIMIT_BYTES, f"dense {label}: peak memory "
-                                      f"{peak / 1e9:.1f} GB")
+    require(peak <= PEAK_LIMIT_BYTES,
+            f"{label}: peak memory {peak / 1e9:.1f} GB")
 
 
 def _log_tree(label, params):
     from repro_torch.quant.int8 import tree_bytes_quantized
     torch.cuda.synchronize()
-    log(f"dense {label}: params {tree_bytes_quantized(params) / 1e9:.3f} GB "
-        f"resident")
+    log(f"{label}: params {tree_bytes_quantized(params) / 1e9:.3f} "
+        f"GB resident")
 
 
 def _dense_gemma2(label, params, rng):
@@ -3131,13 +3156,14 @@ def _g2_auto_vs_flash(params, rng):
         f"{ms['cuda']:.1f}")
 
 
-def _dense_scheduled(label, arch, params, rng):
-    """yi-9b / deepseek-coder-33b through the engine on stablelm's
-    schedule (graphs against eager, bit for bit), then the cuda path
-    against the naive path on the same tree (for int8 the int8 kernel
-    runs on both, so only the attention path differs): a ragged prefill
-    at B x T_PREFILL and 16 teacher-forced decode steps."""
-    cfg = _dense_cfg(arch)
+def _dense_scheduled(label, arch, params, rng, cfg=None):
+    """yi-9b / deepseek-coder-33b (or qwen3-moe-235b at its cut depth,
+    cfg) through the engine on stablelm's schedule (graphs against
+    eager, bit for bit), then the cuda path against the naive path on
+    the same tree (for int8 the int8 kernel runs on both, so only the
+    attention path differs): a ragged prefill at B x T_PREFILL and 16
+    teacher-forced decode steps."""
+    cfg = cfg or _dense_cfg(arch)
     _graphs_vs_eager(f"{arch} {label}", params, rng, cfg)
     lens = np.array([T_PREFILL, 300, 129, 37])
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, T_PREFILL)),
@@ -3148,7 +3174,7 @@ def _dense_scheduled(label, arch, params, rng):
     a, b = _cuda_vs_naive(f"{arch} {label}", cfg, params, params, toks, vf,
                           forced, S_CACHE)
     worst = _worst_rel(f"{arch} {label} cuda vs naive", a, b)
-    log(f"dense {arch} {label}: prefill B={B} T={T_PREFILL} lengths="
+    log(f"{arch} {label}: prefill B={B} T={T_PREFILL} lengths="
         f"{lens.tolist()} + 16 decode steps, cuda vs naive attention (the "
         f"same tree): max |dlogit|/max|logit| = {worst:.3e} over 17 steps "
         f"(tol {LOGIT_TOL}); max|logit|={float(b.abs().max()):.2f}")
@@ -3192,23 +3218,23 @@ def phase_dense():
     from repro_torch.quant.int8 import quantize_exec_tree
     rng = np.random.default_rng(6)
     gen = torch.Generator(device="cuda").manual_seed(6)
-    with _peak("gemma2_9b fp32"):
+    with _peak("dense gemma2_9b fp32"):
         p32 = init_params(_dense_cfg("gemma2_9b"), seed=0)
-        _log_tree("gemma2_9b fp32", p32)
+        _log_tree("dense gemma2_9b fp32", p32)
         _dense_gemma2("fp32", p32, rng)
-    with _peak("gemma2_9b int8"):
+    with _peak("dense gemma2_9b int8"):
         p8 = quantize_exec_tree(p32)
         del p32     # the int8 tree keeps the embeddings and norms
-        _log_tree("gemma2_9b int8", p8)
+        _log_tree("dense gemma2_9b int8", p8)
         _dense_gemma2("int8", p8, rng)
         del p8
     for arch, label in (("yi_9b", "fp32"), ("deepseek_coder_33b", "int8"),
                         ("musicgen_large", "fp32"), ("chameleon_34b", "int8")):
-        with _peak(f"{arch} {label}"):
+        with _peak(f"dense {arch} {label}"):
             cfg = _dense_cfg(arch)
             p = init_params(cfg, seed=0) if label == "fp32" else \
                 tree_by_group(cfg, seed=0)
-            _log_tree(f"{arch} {label}", p)
+            _log_tree(f"dense {arch} {label}", p)
             if cfg.input_mode == "embeddings":
                 _dense_embedded(label, arch, p, gen)
             else:
@@ -3222,7 +3248,7 @@ def phase_serve_dense():
     launch counts and measured profiles."""
     from repro_torch.serving.engine import InferenceEngine
     engines = {}
-    with _peak("serve"):
+    with _peak("dense serve"):
         for name, arch in (("gemma2_int8", "gemma2_9b"),
                            ("yi_int8", "yi_9b")):
             cfg = _dense_cfg(arch)
@@ -3234,6 +3260,145 @@ def phase_serve_dense():
             "dense", engines, {"gemma2_int8": 0.76, "yi_int8": 0.75}, 8, 7)
         del engines
     return counts, profs
+
+
+# --------------------------------------------------------------------------
+# Phase: moe (qwen3-moe-235b-a22b at published width, its depth cut)
+# --------------------------------------------------------------------------
+
+def moe_depth(cfg):
+    """(layers, bytes of the embedding, head and final norm, bytes a
+    layer): the most layers of cfg whose fp32 weights, with the
+    embedding, the head and MOE_ACT_BYTES of activations, caches and
+    graph pools, fit PEAK_LIMIT_BYTES."""
+    fixed = dataclasses.replace(cfg, n_layers=0).param_count() * 4
+    layer = cfg._block_params("moe") * 4
+    return int((PEAK_LIMIT_BYTES - fixed - MOE_ACT_BYTES) // layer), \
+        fixed, layer
+
+
+def _moe_cfg(impl="cuda"):
+    """qwen3-moe-235b-a22b at published width with its depth cut
+    (moe_depth)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH, attn_impl=impl)
+    return dataclasses.replace(cfg, n_layers=moe_depth(cfg)[0])
+
+
+def _graph_ms(fn, n):
+    """Device-timeline ms of a replay of fn captured in a CUDA graph
+    (`_timed` over n replays), after a warm-up call on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _timed(graph.replay, n)[1]
+
+
+def _moe_step_times(eng, rng):
+    """The step times of the moe engine, each as (wall ms, device-
+    timeline ms) a call over MOE_TIMED calls (`_timed`): the graph steps
+    through the engine (a group prefill at T_SERVE and T_PREFILL, decode
+    steps after it; each returns host logits) and the same steps through
+    `models.model` eagerly on the engine's cache. Then the MoE FFN's
+    share of a decode step: the step captured and replayed as it is,
+    and again with every layer's `moe_block_ffn` giving zeros (no
+    expert runs), the device-timeline ms of a replay of each
+    (`_graph_ms`); the FFN takes their difference."""
+    from repro_torch.models import model as M
+    from repro_torch.models.model import decode_step, prefill
+    cfg, p = eng.cfg, eng.params
+    out = {}
+    for T in (T_SERVE, T_PREFILL):
+        toks = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+        eng.run_prefill(toks)        # captured here at T_PREFILL
+        out[f"prefill_T{T}_graph"] = _timed(lambda: eng.run_prefill(toks),
+                                            MOE_TIMED)
+        tt = torch.as_tensor(toks, device="cuda")
+        out[f"prefill_T{T}_eager"] = _timed(lambda: prefill(
+            p, tt, cfg, eng.max_seq, logits_last_only=True,
+            valid_from=eng.valid_from, cache=eng.cache), MOE_TIMED)
+    eng.run_prefill(rng.integers(0, cfg.vocab, (B, T_SERVE)).astype(np.int32))
+    nxt = rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)
+    out["decode_graph"] = _timed(lambda: eng.run_decode(nxt), MOE_TIMED)
+    pos = torch.tensor(eng.cache_pos, dtype=torch.int32, device="cuda")
+    tok = torch.as_tensor(nxt, device="cuda")
+
+    def step():
+        return decode_step(p, tok, eng.cache, pos, cfg,
+                           valid_from=eng.valid_from)
+    out["decode_eager"] = _timed(step, MOE_TIMED)
+    with_ffn = _graph_ms(step, MOE_TIMED)
+    ffn = M.moe_block_ffn
+    M.moe_block_ffn = lambda p_, x, cfg_: (
+        torch.zeros_like(x), torch.zeros((), device=x.device))
+    try:
+        without = _graph_ms(step, MOE_TIMED)
+    finally:
+        M.moe_block_ffn = ffn
+    # A patch that no longer reaches the step would time the FFN twice.
+    require(without < with_ffn, f"moe: the decode replay without the FFN "
+            f"({without:.4f} ms) is not shorter than with it "
+            f"({with_ffn:.4f} ms)")
+    # The experts' bytes a decode step reads (every expert for every
+    # token), over the FFN's ms: the rate it streams them at.
+    expert_bytes = cfg.n_layers * 3 * cfg.moe.n_experts * cfg.d_model \
+        * cfg.moe.d_ff_expert * 4
+    out.update(decode_replay_ms=with_ffn, decode_replay_no_ffn_ms=without,
+               moe_ffn_share_of_decode=1 - without / with_ffn,
+               expert_bytes_per_step_GB=expert_bytes / 1e9,
+               expert_stream_TB_s=expert_bytes / (with_ffn - without) / 1e9)
+    return out
+
+
+def phase_moe():
+    """qwen3-moe-235b-a22b in fp32 at published width, its depth cut to
+    moe_depth's layers (random weights from seed 0, init_params on the
+    card), B = 4, max_seq S_CACHE, its peak held under PEAK_LIMIT_BYTES:
+    stablelm's schedule through the engine (graphs against eager, bit
+    for bit; the cuda path against the naive path, a ragged prefill at
+    T_PREFILL and 16 teacher-forced steps); step times and the MoE FFN's
+    share of a decode step; then MOE_REQUESTS requests through
+    CNNSelectServer with this engine as the only candidate, on the same
+    tree. Returns the path's launch counts."""
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.configs import get_config
+    full = get_config(MOE_ARCH)
+    depth, fixed, layer = moe_depth(full)
+    cfg = _moe_cfg()
+    log(f"moe {MOE_ARCH}: published width (d {cfg.d_model}, {cfg.n_heads} q "
+        f"heads on {cfg.n_kv_heads} kv heads, hd {cfg.head_dim}, "
+        f"{cfg.moe.n_experts} experts top {cfg.moe.top_k}, f "
+        f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab}), fp32; depth cut "
+        f"{full.n_layers} -> {depth} layers: {layer / 1e9:.3f} GB a layer, "
+        f"{fixed / 1e9:.3f} GB embedding + head + norm, "
+        f"{MOE_ACT_BYTES / 1e9:.0f} GB kept for activations, caches and "
+        f"graph pools, limit {PEAK_LIMIT_BYTES / 1e9:.0f} GB")
+    require(depth >= 1, "moe: no layer fits")
+    rng = np.random.default_rng(9)
+    with _peak(f"moe {MOE_ARCH} fp32 {depth} layers"):
+        p = init_params(cfg, seed=0)
+        _log_tree(f"moe {MOE_ARCH} fp32", p)
+        _dense_scheduled("fp32", MOE_ARCH, p, rng, cfg=cfg)
+        eng = InferenceEngine(cfg, p, batch_size=B, max_seq=S_CACHE)
+        with torch.no_grad():
+            eng.warmup(prompt_len=T_SERVE)
+            times = _moe_step_times(eng, rng)
+        log(f"moe {MOE_ARCH} step times ({depth} layers, B={B}; [wall ms, "
+            f"device-timeline ms] a call over {MOE_TIMED} calls): "
+            f"{json.dumps(times)}")
+        # The engine serves from a fresh group: the timing above left its
+        # cache at an arbitrary position.
+        counts, _ = _serve_candidates(
+            "moe", {"qwen3_moe_fp32": eng}, {"qwen3_moe_fp32": 0.8},
+            MOE_REQUESTS, 10, kernels=("flash_attention", "decode_attention"))
+        del eng, p
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -3845,7 +4010,7 @@ def phase_profile_dense():
     from repro_torch.models import init_params
     for arch, label in (("gemma2_9b", "fp32"), ("gemma2_9b", "int8"),
                         ("yi_9b", "fp32"), ("deepseek_coder_33b", "int8")):
-        with _peak(f"profile {arch} {label}"):
+        with _peak(f"dense profile {arch} {label}"):
             cfg = _dense_cfg(arch)
             p = init_params(cfg, seed=0) if label == "fp32" else \
                 tree_by_group(cfg, seed=0)
@@ -3995,6 +4160,7 @@ def main(argv=None):
         phase_sim_headline(measured)
     if "profile_dense" in phases:
         phase_profile_dense()
+    mcounts = phase_moe() if "moe" in phases else None
     tcounts = phase_train() if "train" in phases else None
     if "profile_train" in phases:
         phase_profile_train()
@@ -4031,6 +4197,10 @@ def main(argv=None):
                 # The dense path's own run (gemma2-9b int8 and yi-9b int8
                 # behind CNNSelectServer).
                 launches_dense=None if dcounts is None else dcounts[name],
+                # The moe path's own run (qwen3-moe-235b fp32, depth cut,
+                # behind CNNSelectServer; no int8 kernel: its experts
+                # compute in float only).
+                launches_moe=None if mcounts is None else mcounts[name],
                 # The training path's run: none (it runs the plain
                 # attention; the kernels have no backward).
                 launches_train=None if tcounts is None else tcounts[name],

@@ -1,10 +1,8 @@
 """Architecture registry. Each <arch>.py exposes `make_config()` with the
 exact published hyper-parameters; `reduced_config(name)` scales a family
-down for CPU tests (same block pattern, tiny dims).
-
-Every architecture runs on this package but the two MoE ones (qwen3,
-grok), which need the MoE module of a later slice of the port; they
-are named here so `get_config` can say so."""
+down for CPU tests (same block pattern, tiny dims). Every architecture
+runs on this package; the MoE ones (qwen3, grok) on the unsharded path
+(`models/moe.py`)."""
 
 from __future__ import annotations
 
@@ -23,11 +21,6 @@ ARCH_IDS = [
     "qwen3_moe_235b",
     "grok_1_314b",
 ]
-
-# Architectures whose modules are ported.
-PORTED = ("musicgen_large", "stablelm_1_6b", "gemma2_9b", "yi_9b",
-          "deepseek_coder_33b", "recurrentgemma_2b", "chameleon_34b",
-          "mamba2_2_7b")
 
 # Canonical external ids (assignment spelling) -> module names.
 ALIASES = {
@@ -52,19 +45,14 @@ def resolve(name: str) -> str:
 
 
 def get_config(name: str, **runtime):
-    name = resolve(name)
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: it needs the MoE module, "
-            f"a later slice of the port (ported: {', '.join(PORTED)})")
-    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    mod = importlib.import_module(f"repro_torch.configs.{resolve(name)}")
     cfg = mod.make_config()
     return cfg.with_runtime(**runtime) if runtime else cfg
 
 
 def reduced_config(name: str, **runtime):
     """Tiny same-family config for CPU tests."""
-    from repro_torch.models.config import RGLRUConfig, SSDConfig
+    from repro_torch.models.config import MoEConfig, RGLRUConfig, SSDConfig
     cfg = get_config(name)
     pat = len(cfg.pattern)
     n_layers = pat * 2 + (1 if cfg.n_layers % pat else 0)  # 2 groups (+tail)
@@ -80,6 +68,9 @@ def reduced_config(name: str, **runtime):
         tp_pad_heads=0,
         attn_chunk=16,
     )
+    if cfg.moe:
+        kw["moe"] = MoEConfig(n_experts=4, top_k=2, d_ff_expert=32,
+                              capacity_factor=2.0)
     if cfg.ssd:
         kw["ssd"] = SSDConfig(d_state=16, head_dim=8, n_groups=1,
                               conv_width=4, expand=2, chunk=16)

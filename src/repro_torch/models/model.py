@@ -1,4 +1,4 @@
-"""Decoder LM for attention-only and recurrent (RG-LRU, SSD) block
+"""Decoder LM for attention-only, recurrent (RG-LRU, SSD) and MoE block
 patterns, on torch tensors.
 
 A model is `n_layers` blocks produced by cycling `cfg.pattern`; layers
@@ -29,22 +29,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import params as pmod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import attn_block, f32_up, rms_norm, softcap
+from repro_torch.models.moe import moe_block_ffn
 from repro_torch.models.rglru import rglru_block
 from repro_torch.models.ssd import ssd_block
 from repro_torch.utils import dtype_of, resolve_device
 
 init_params = pmod.init_params
 
-_NOT_PORTED = ("moe",)
 RECURRENT_KINDS = ("rglru", "ssd")
-
-
-def _check_kinds(cfg: ModelConfig):
-    bad = sorted(set(cfg.pattern) & set(_NOT_PORTED))
-    if bad:
-        raise NotImplementedError(
-            f"block kinds {bad} are not ported yet (MoE belongs to a "
-            f"later slice of the port)")
 
 
 # --------------------------------------------------------------------------
@@ -83,8 +75,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     """{"blocks": (stacked per pattern kind,), "tail": (...,)}: attention
     layers' k/v buffers (zeros) and stored positions (-1 = unwritten);
     recurrent layers' state (RG-LRU h, SSD S: fp32) and convolution
-    inputs (compute dtype), zeros."""
-    _check_kinds(cfg)
+    inputs (compute dtype), zeros. MoE layers keep an attention cache."""
     device = resolve_device(device)
     G = cfg.n_groups_scan
     return {
@@ -119,6 +110,8 @@ def _unstack(tree, n: int):
 
 def _apply_block(kind: str, p, x, cfg: ModelConfig, positions, cache,
                  cache_pos, valid_from):
+    """Returns (x, aux): aux the MoE block's load-balance loss, None for
+    every other kind."""
     if kind in RECURRENT_KINDS:
         if valid_from is not None:
             # Recurrent state integrates every input step sequentially: a
@@ -130,20 +123,28 @@ def _apply_block(kind: str, p, x, cfg: ModelConfig, positions, cache,
                 f"({kind}); feed unpadded sequences")
         block = rglru_block if kind == "rglru" else ssd_block
         x, _ = block(p, x, cfg, cache)
-        return x
+        return x, None
     x, _ = attn_block(p, x, cfg, kind, positions, cache, cache_pos,
                       valid_from)
-    return x
+    if kind != "moe":
+        return x, None
+    out, aux = moe_block_ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    if cfg.sandwich_norm:
+        out = rms_norm(out, p["post_ffn_norm"], cfg.norm_eps)
+    return x + out, aux
 
 
 def _apply_group(cfg: ModelConfig, ps, x, positions, cs, cache_pos,
-                 valid_from):
-    """One pass through the pattern: the reference's scan body."""
+                 valid_from, aux):
+    """One pass through the pattern: the reference's scan body. Returns
+    (x, aux plus the group's MoE losses)."""
     for i, kind in enumerate(cfg.pattern):
         c = None if cs is None else cs[i]
-        x = _apply_block(kind, ps[i], x, cfg, positions, c, cache_pos,
-                         valid_from)
-    return x
+        x, a = _apply_block(kind, ps[i], x, cfg, positions, c, cache_pos,
+                            valid_from)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def forward(params, inputs, cfg: ModelConfig, *, cache=None,
@@ -165,12 +166,12 @@ def forward(params, inputs, cfg: ModelConfig, *, cache=None,
     cache in place, which a second run would write again, and gives the
     same values either way, so it runs as it is.
     Returns (logits, {"aux_loss": 0-d fp32, "cache": cache}); aux_loss is
-    the MoE balance loss in the reference, zero for every ported block."""
-    _check_kinds(cfg)
+    the MoE blocks' load-balance losses summed (zero without MoE)."""
     if cfg.remat == "moe_save":
         raise NotImplementedError(
-            "remat='moe_save' saves the MoE outputs, and MoE blocks are not "
-            "ported yet (a later slice of the port); use remat='block'")
+            "remat='moe_save' (recompute each group but keep the MoE "
+            "outputs) is not ported: a later PR (ROADMAP queue 1, the MoE "
+            "follow-ups); use remat='block'")
     compute_dtype = dtype_of(cfg.compute_dtype)
     if cfg.input_mode == "embeddings":
         x = inputs.to(compute_dtype)
@@ -188,6 +189,7 @@ def forward(params, inputs, cfg: ModelConfig, *, cache=None,
     if cache_pos is None:
         cache_pos = torch.zeros((), dtype=torch.int32, device=x.device)
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = (cfg.remat == "block" and cache is None
              and torch.is_grad_enabled())
     G = cfg.n_groups_scan
@@ -197,16 +199,19 @@ def forward(params, inputs, cfg: ModelConfig, *, cache=None,
         cs = None if cache is None else [_index(c, g)
                                          for c in cache["blocks"]]
         if remat:
-            x = checkpoint(_apply_group, cfg, ps, x, positions, cs,
-                           cache_pos, valid_from, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(_apply_group, cfg, ps, x, positions, cs,
+                                cache_pos, valid_from, aux,
+                                use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x = _apply_group(cfg, ps, x, positions, cs, cache_pos,
-                             valid_from)
+            x, aux = _apply_group(cfg, ps, x, positions, cs, cache_pos,
+                                  valid_from, aux)
     for i, kind in enumerate(cfg.tail_kinds):
         c = None if cache is None else cache["tail"][i]
-        x = _apply_block(kind, params["tail"][i], x, cfg, positions, c,
-                         cache_pos, valid_from)
+        x, a = _apply_block(kind, params["tail"][i], x, cfg, positions, c,
+                            cache_pos, valid_from)
+        if a is not None:
+            aux = aux + a
 
     if logits_last_only:
         x = x[:, -1:]
@@ -217,7 +222,6 @@ def forward(params, inputs, cfg: ModelConfig, *, cache=None,
         logits = torch.einsum("btd,dv->btv", x,
                               params["lm_head"].to(x.dtype))
     logits = softcap(f32_up(logits), cfg.final_softcap)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, {"aux_loss": aux, "cache": cache}
 
 

@@ -1,4 +1,4 @@
-"""Parameter trees of the attention-only and recurrent models.
+"""Parameter trees of the attention-only, recurrent and MoE models.
 
 The tree has the reference's structure — {"embed", "final_norm",
 "lm_head", "blocks": (stacked dict per pattern kind,), "tail": (dict,)}
@@ -18,14 +18,14 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ATTN_KINDS, ModelConfig
 from repro_torch.utils import dtype_of, resolve_device
 
 
 def block_tree(cfg: ModelConfig, kind: str, mk):
     """One block's parameter tree via the mk(shape, init) callback."""
     d = cfg.d_model
-    if kind in ("attn", "global", "local"):
+    if kind in ATTN_KINDS:
         Hq, KV, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim
         p = {"ln1": mk((d,), "zeros"),
              "wq": mk((d, Hq, hd), "fan_in"),
@@ -39,7 +39,10 @@ def block_tree(cfg: ModelConfig, kind: str, mk):
             p["post_attn_norm"] = mk((d,), "zeros")
             p["post_ffn_norm"] = mk((d,), "zeros")
         p["ln2"] = mk((d,), "zeros")
-        p["mlp"] = _mlp_tree(cfg, mk)
+        if kind == "moe":
+            p.update(_moe_tree(cfg, mk))
+        else:
+            p["mlp"] = _mlp_tree(cfg, mk)
         return p
     if kind == "rglru":
         w, K = cfg.lru_width, cfg.rglru.conv_width
@@ -73,9 +76,19 @@ def block_tree(cfg: ModelConfig, kind: str, mk):
                 "D": mk((nh,), "ones"),
                 "norm_w": mk((di,), "ones"),
                 "w_out": mk((di, d), "fan_in")}
-    raise NotImplementedError(
-        f"block kind {kind!r} is not ported yet: MoE blocks belong to a "
-        f"later slice of the port")
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _moe_tree(cfg: ModelConfig, mk):
+    """The router (d, E) and the experts' stacked FFN weights: up and
+    gate (E, d, f), down (E, f, d)."""
+    d, m = cfg.d_model, cfg.moe
+    p = {"router": mk((d, m.n_experts), "fan_in"),
+         "w_up": mk((m.n_experts, d, m.d_ff_expert), "fan_in3")}
+    if cfg.mlp_gated:
+        p["w_gate"] = mk((m.n_experts, d, m.d_ff_expert), "fan_in3")
+    p["w_down"] = mk((m.n_experts, m.d_ff_expert, d), "fan_in3")
+    return p
 
 
 def _mlp_tree(cfg: ModelConfig, mk):
@@ -128,7 +141,8 @@ def _uniform(gen, shape, lo, hi, device):
 
 
 def _draw(gen, shape, init, dtype, device, stacked: bool = False):
-    """One leaf. fan_in scales by 1/sqrt(the layer's first axis), fan_io
+    """One leaf. fan_in scales by 1/sqrt(the layer's first axis), fan_in3
+    (the experts' (E, in, out) weights) by 1/sqrt(its second), fan_io
     by 1/sqrt(the product of its first two). The reference takes a
     stacked leaf's fan from the stacked shape (the group count); here it
     comes from the layer's own input width, which keeps full-width
@@ -153,6 +167,8 @@ def _draw(gen, shape, init, dtype, device, stacked: bool = False):
     lead = shape[1:] if stacked else shape
     if init == "fan_in":
         x /= math.sqrt(lead[0])
+    elif init == "fan_in3":
+        x /= math.sqrt(lead[1])
     elif init == "fan_io":
         x /= math.sqrt(lead[0] * lead[1])
     elif init == "conv":

@@ -6,9 +6,10 @@ the simulation plane: the event-driven request simulator (paper §5.2
 simulations), the multi-tenant cluster and trace capture and replay.
 
 `simulate(..., engine="scan")` runs the scan engine
-(`serving/scan_engine.py`): the control plane as a column program on
-the card, or on the CPU inside `scan_engine.scan_device("cpu")`.
-`Cluster(..., engine="scan")` belongs to a later slice of the port."""
+(`serving/scan_engine.py`) and `Cluster(..., engine="scan")` the scan
+cluster engine (`serving/cluster_engine.py`): the control plane as a
+column program on the card, or on the CPU inside
+`scan_engine.scan_device("cpu")`."""
 
 from repro_torch.serving.cluster import (Cluster, ClusterPlacer,
                                          TenantColumns, TenantSpec,

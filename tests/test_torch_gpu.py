@@ -500,6 +500,88 @@ def test_engine_graphs_match_eager_model(cuda, quant):
         n: per_step[n] for n in after}
 
 
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b", "grok_1_314b"])
+def test_moe_ffn_dense_card_matches_cpu(cuda, arch):
+    """moe_ffn_dense on the card against the same function on the CPU, on
+    the same weights and (2, 33, d) inputs (reduced config, d 256): the
+    output within 2e-5 of max|CPU output|, the aux loss within 2e-5, the
+    router's experts equal."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as M
+    from repro_torch.models.params import tree_map
+    cfg = dataclasses.replace(reduced_config(arch), d_model=256)
+    p = {k: v[0] for k, v in
+         init_params(cfg, 0, device="cpu")["blocks"][0].items()}
+    x = torch.randn((2, 33, 256), generator=torch.Generator().manual_seed(1))
+    want, aux = M.moe_ffn_dense(p, x, cfg)
+    pc = tree_map(lambda t: t.cuda(), p)
+    got, aux_c = M.moe_ffn_dense(pc, x.cuda(), cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(M.router_topk(pc, x.cuda().reshape(66, 256), cfg)[1]
+                       .cpu(), M.router_topk(p, x.reshape(66, 256), cfg)[1])
+    tol = 2e-5 * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=0)
+    torch.testing.assert_close(aux_c.cpu(), aux, atol=2e-5, rtol=0)
+
+
+def test_moe_engine_graphs_match_eager_model(cuda):
+    """Reduced qwen3-moe (d 256, 4 experts, top 2) through the engine on
+    the card: the prefill and decode graphs capture the MoE block (no
+    host read in it) and give the bits of `models.model` run eagerly on
+    a fresh cache, over 34 decode steps with a backfill mid-group and a
+    second group at a shorter T."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import InferenceEngine
+    cfg = dataclasses.replace(reduced_config("qwen3_moe_235b"), d_model=256,
+                              attn_impl="cuda")
+    eng = InferenceEngine(cfg, init_params(cfg, 0, device="cuda"),
+                          batch_size=4, max_seq=128)
+    assert eng._maskable and eng._backfillable
+    with torch.no_grad():
+        got, fed = _serve_steps(eng, cuda, cfg.vocab)
+    want = _eager_steps(eng, fed)
+    assert len(got) == len(want) == 41
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g == w).all(), i
+    assert eng.stats.graph_captures == 3
+    per_step = eng._graphs["decode"].launches
+    assert per_step["decode_attention"] == cfg.n_layers
+    assert per_step["int8_matmul"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T, vf", [(64, [0, 47, 14, 63]),
+                                   (512, [0, 212, 383, 475])])
+def test_flash_attention_qwen3_moe_heads(cuda, T, vf, dtype):
+    """qwen3-moe-235b's heads (64 q heads on 4 kv heads, hd 128) at the
+    moe phase's prefill shapes."""
+    q = _randn(cuda, (4, T, 64, 128), dtype)
+    k = _randn(cuda, (4, T, 4, 128), dtype)
+    v = _randn(cuda, (4, T, 4, 128), dtype)
+    vft = torch.tensor(vf, dtype=torch.int32, device="cuda")
+    out = ops.flash_attention_btHd(q, k, v, vft)
+    want = R.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2),
+                                 valid_from=vft).transpose(1, 2)
+    torch.cuda.synchronize()
+    _assert_close(out, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cpos, vf", [(100, [0, 47, 14, 63]),
+                                      (528, [0, 212, 383, 475])])
+def test_decode_attention_qwen3_moe_heads(cuda, cpos, vf, dtype):
+    q, k, v, pos = _decode_case(cuda, 4, 1024, 64, 4, 128, cpos, dtype,
+                                False)
+    _decode_check(q, k, v, pos, cpos, vf, dtype, False)
+
+
 def _int8_case(gen, M, K, N, dtype, x_pad=0, w_off=0):
     x = _randn(gen, (M, K + x_pad), dtype)[:, :K]
     wq = torch.randint(-127, 128, (K * N + w_off,), generator=gen,

@@ -26,7 +26,8 @@ COPIED = ["core/registry.py", "core/selection.py", "core/profiles.py",
           "configs/recurrentgemma_2b.py", "configs/mamba2_2_7b.py",
           "configs/gemma2_9b.py", "configs/yi_9b.py",
           "configs/deepseek_coder_33b.py", "configs/musicgen_large.py",
-          "configs/chameleon_34b.py", "data/pipeline.py",
+          "configs/chameleon_34b.py", "configs/qwen3_moe_235b.py",
+          "configs/grok_1_314b.py", "data/pipeline.py",
           "data/__init__.py", "serving/trace.py", "serving/simulator.py",
           "serving/cluster.py", "serving/scan_engine.py",
           "serving/cluster_engine.py"]
@@ -216,9 +217,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card,
 def test_get_config_names_the_later_slice():
     from repro_torch.configs import get_config
     assert get_config("stablelm-1.6b").d_model == 2048
-    for arch in ("qwen3_moe_235b", "grok_1_314b"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            get_config(arch)
+    # The published dimensions (tests/test_models.py).
+    q, g = get_config("qwen3-moe-235b-a22b"), get_config("grok_1_314b")
+    assert (q.n_layers, q.d_model, q.n_heads, q.n_kv_heads, q.d_ff,
+            q.vocab) == (94, 4096, 64, 4, 0, 151936)
+    assert (q.moe.n_experts, q.moe.top_k, q.moe.d_ff_expert) == (128, 8,
+                                                                 1536)
+    assert (g.n_layers, g.d_model, g.n_heads, g.n_kv_heads, g.d_ff,
+            g.vocab) == (64, 6144, 48, 8, 0, 131072)
+    assert (g.moe.n_experts, g.moe.top_k, g.moe.d_ff_expert) == (8, 2,
+                                                                 32768)
 
 
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
