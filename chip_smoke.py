@@ -105,6 +105,19 @@ Phases (each prints its results, one line each):
            greedy, 16 SLA points, 10000 requests each, a CPU
            computation) on every candidate profile the serve phases
            measured
+  sharded  the tensor-parallel serve path on torch.distributed: (a) a
+           one-rank NCCL group, mesh (1, 1): full-width stablelm-1.6b
+           fp32 and int8 through InferenceEngine(parallel=) with its
+           graphs (the NCCL collectives captured), every step within
+           1e-4 of max|logit| of the unsharded engine and bit for bit
+           its own eager run, every kernel launched (launches_sharded);
+           (b) two gloo ranks on the one card (NCCL refuses two ranks on
+           one device), mesh (1, 2): full-width stablelm-1.6b fp32
+           forward, prefill and decode eagerly against the unsharded
+           run, and flash_decode_sharded at yi-9b's heads (32/4/128) on
+           a 4096-slot ring past its wrap, split over the two ranks,
+           with valid_from and a row that attends no slot, against the
+           plain decode attention over the whole cache
   recurrent
            recurrentgemma-2b (fp32, int8) and mamba2-2.7b (fp32) at their
            published size, batch 4, max_seq 4096: the engine's graphs
@@ -228,7 +241,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "scan", "cluster", "model", "serve", "sim",
-          "recurrent", "dense", "moe", "train")
+          "sharded", "recurrent", "dense", "moe", "train")
 EXTRA_PHASES = ("profile", "profile_recurrent", "profile_dense",
                 "profile_train", "tune", "scan_full", "profile_cluster")
 
@@ -1732,7 +1745,8 @@ def tree_by_group(cfg, seed, device="cuda", quantize=True):
         return out
     # Stacked leaves come back from model_tree as (shape, init, groups)
     # and are drawn by `fill`, in the tree's order.
-    tree = pmod.model_tree(cfg, draw, lambda shape, init, n: (shape, init, n))
+    tree = pmod.model_tree(cfg, lambda shape, axes, init: draw(shape, init),
+                           lambda shape, axes, init, n: (shape, init, n))
     tree["blocks"] = tuple(fill(b) for b in tree["blocks"])
     return tree
 
@@ -3402,6 +3416,256 @@ def phase_moe():
 
 
 # --------------------------------------------------------------------------
+# Phase: sharded (the tensor-parallel serve path on torch.distributed)
+# --------------------------------------------------------------------------
+
+SHARD_STEPS = 8             # decode steps a side in the sharded checks
+SHARD_B = 2                 # batch of the two-rank gloo run
+SHARD_TIMEOUT = 300         # seconds the two gloo ranks may take
+FD_S, FD_POS, FD_HEADS = 4096, 4096 + 700, (32, 4, 128)   # yi-9b's heads
+FD_TOL = TOL[torch.float32]
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _sharded_feed(rng, V):
+    """Fixed inputs of the sharded engine checks (every step's tokens
+    given, so two engines whose logits differ in the last bits are fed
+    alike): a left-padded group, SHARD_STEPS decode steps with a
+    backfill into slot 1 half way, then SHARD_STEPS more."""
+    row = np.zeros(T_SERVE, np.int32)
+    row[T_SERVE - BACKFILL_LEN:] = rng.integers(0, V, BACKFILL_LEN)
+    return (rng.integers(0, V, (B, T_SERVE)).astype(np.int32), row,
+            rng.integers(0, V, (2 * SHARD_STEPS, B, 1)).astype(np.int32))
+
+
+def _sharded_engine_steps(eng, feed):
+    prompts, row, toks = feed
+    out = [eng.run_prefill(prompts, lengths=LENS_FIRST)]
+    for i in range(2 * SHARD_STEPS):
+        if i == SHARD_STEPS:
+            out.append(eng.prefill_row(row, 1, length=BACKFILL_LEN))
+        out.append(eng.run_decode(toks[i]))
+    return out
+
+
+def _rel(got, want):
+    return max(float(np.abs(g - w).max() / np.abs(w).max())
+               for g, w in zip(got, want))
+
+
+def _one_rank_nccl(p32, p8):
+    """(a) A one-rank NCCL group and mesh (1, 1): full-width
+    stablelm-1.6b, fp32 and int8, through InferenceEngine(parallel=)
+    with graphs, against the unsharded engine (1e-4 of max|logit|) and
+    against the same sharded engine run eagerly (bit for bit). Returns
+    the kernels' launches in the graph engines' runs (replays
+    included)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import shard_params
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.sharding import make_parallel
+    cfg = _full_width("cuda")
+    counts = {name: 0 for name in ops.KERNELS}
+    counts["int8_matmul_prefill"] = 0
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        par = make_parallel(make_mesh((1, 1), ("data", "model")), "serve")
+        for label, params in (("fp32", p32), ("int8", p8)):
+            feed = _sharded_feed(np.random.default_rng(21), cfg.vocab)
+            shards = shard_params(params, cfg, par)
+            kw = dict(batch_size=B, max_seq=S_CACHE, device="cuda")
+            with torch.no_grad():
+                want = _sharded_engine_steps(
+                    InferenceEngine(cfg, params, **kw), feed)
+                eager = _sharded_engine_steps(InferenceEngine(
+                    cfg, shards, parallel=par, graphs=False, **kw), feed)
+                ops.reset_launch_counts()
+                eng = InferenceEngine(cfg, shards, parallel=par, **kw)
+                got = _sharded_engine_steps(eng, feed)
+                for name, n in ops.launch_counts().items():
+                    counts[name] += n
+                counts["int8_matmul_prefill"] += ops.int8_prefill_launches()
+            unequal = [i for i, (g, e) in enumerate(zip(got, eager))
+                       if not np.array_equal(g, e)]
+            rel = _rel(got, want)
+            st = eng.stats
+            log(f"sharded (a) {label}: nccl mesh (1, 1), {cfg.name} full "
+                f"width, B={B} prefill T={T_SERVE} lengths={LENS_FIRST}, "
+                f"{2 * SHARD_STEPS} decode steps, a backfill into slot 1: "
+                f"{len(got)} steps; graphs vs unsharded engine max "
+                f"|dlogit|/max|logit| = {rel:.3e} (limit {LOGIT_TOL}); "
+                f"graphs vs eager bit-identical at "
+                f"{len(got) - len(unequal)} (unequal: {unequal}); "
+                f"captures={st.graph_captures} replays={st.graph_replays}")
+            require(rel <= LOGIT_TOL, f"sharded (a) {label}: logits off")
+            require(not unequal, f"sharded (a) {label}: graphs != eager")
+            require(st.graph_replays > 0, f"sharded (a) {label}: no replay")
+            del eng, shards
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log(f"sharded (a) launches: {json.dumps(counts)}")
+    for name in ("flash_attention", "decode_attention", "int8_matmul"):
+        require(counts[name] > 0, f"sharded (a): {name} launched")
+    return counts
+
+
+def _sharded_rank(rank, world, port, out_dir):
+    """(b) One of two gloo ranks on the one card (mesh (1, 2))."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref as R
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import flash_decode
+    from repro_torch.models.model import decode_step, forward, prefill
+    from repro_torch.models.params import init_params, shard_params
+    from repro_torch.sharding import make_parallel, shard_leaf
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    res = {}
+    try:
+        par = make_parallel(make_mesh((1, world), ("data", "model")),
+                            "serve")
+        cfg = _full_width("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randint(0, cfg.vocab, (SHARD_B, T_SERVE + SHARD_STEPS),
+                          generator=gen, device="cuda", dtype=torch.int32)
+        vf = torch.tensor([0, 20], dtype=torch.int32, device="cuda")
+        params = init_params(cfg, seed=0, device="cuda")
+        t0 = time.perf_counter()
+
+        def run(p, parallel):
+            fwd, _ = forward(p, x[:, :T_SERVE], cfg, parallel=parallel)
+            pre, cache = prefill(p, x[:, :T_SERVE], cfg, S_CACHE,
+                                 parallel=parallel, valid_from=vf)
+            dec = []
+            for i in range(SHARD_STEPS):
+                lg, cache = decode_step(
+                    p, x[:, T_SERVE + i:T_SERVE + i + 1], cache,
+                    T_SERVE + i, cfg, parallel=parallel, valid_from=vf)
+                dec.append(lg[:, 0])
+            return [fwd, pre[:, -1], torch.stack(dec, 1)]
+        with torch.no_grad():
+            want = run(params, None)
+            shards = shard_params(params, cfg, par)
+            del params
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            got = run(shards, par)
+            torch.cuda.synchronize()
+        res["model_rel"] = {k: float((g - w).abs().max() / w.abs().max())
+                            for k, g, w in zip(("forward", "prefill",
+                                                "decode"), got, want)}
+        res["model_s"] = {"unsharded": t1 - t0,
+                          "sharded": time.perf_counter() - t1}
+        del shards, got, want
+        torch.cuda.empty_cache()
+
+        # flash_decode_sharded on yi-9b's heads over a 4096-slot ring
+        # that has wrapped, split over the two ranks, against the plain
+        # decode attention over the whole cache.
+        Hq, KV, hd = FD_HEADS
+        ycfg = get_config("yi_9b")
+        B4, S = 4, FD_S
+        q = torch.randn((B4, 1, Hq, hd), generator=gen, device="cuda")
+        kn = torch.randn((B4, 1, KV, hd), generator=gen, device="cuda")
+        vn = torch.randn((B4, 1, KV, hd), generator=gen, device="cuda")
+        ck = torch.randn((B4, S, KV, hd), generator=gen, device="cuda")
+        cv = torch.randn((B4, S, KV, hd), generator=gen, device="cuda")
+        # Stored positions of a ring past its wrap: slot s holds the
+        # position p = s mod S in (FD_POS - S, FD_POS).
+        s_idx = torch.arange(S, device="cuda")
+        cpos = (FD_POS - S + (s_idx - (FD_POS - S)) % S).to(torch.int32)
+        vfd = torch.tensor([0, FD_POS - 1000, FD_POS - 3, FD_POS + 5],
+                           dtype=torch.int32, device="cuda")
+        spec = (None, "model", None, None)
+        sizes, coords = par.sizes, par.coords()
+        lk, lv = (shard_leaf(t, spec, sizes, coords) for t in (ck, cv))
+        lp = shard_leaf(cpos, ("model",), sizes, coords)
+        cp = torch.tensor(FD_POS, dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            out = flash_decode.flash_decode_sharded(
+                q, kn, vn, lk, lv, lp, cp, ycfg, par, window=S,
+                valid_from=vfd)
+            slot = FD_POS % S
+            ck[:, slot], cv[:, slot], cpos[slot] = kn[:, 0], vn[:, 0], FD_POS
+            ref = R.decode_attention_ref(
+                q[:, 0], ck.transpose(1, 2), cv.transpose(1, 2), cpos,
+                FD_POS, scale=ycfg.head_dim ** -0.5, window=S,
+                valid_from=vfd)
+        torch.cuda.synchronize()
+        mine = slice(coords["model"] * (S // world),
+                     (coords["model"] + 1) * (S // world))
+        res["flash_decode"] = {
+            "max_abs_err": float((out[:, 0] - ref).abs().max()),
+            "empty_row_zero": bool((out[3] == 0).all()),
+            "chunk_written": bool(torch.equal(lk, ck[:, mine])
+                                  and torch.equal(lp, cpos[mine]))}
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out_dir) / f"sharded_rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def _two_gloo_ranks():
+    """(b) Two gloo ranks on the one card (nccl refuses two ranks on one
+    device), mesh (1, 2): full-width stablelm-1.6b fp32 forward,
+    prefill and decode against the unsharded result, and
+    flash_decode_sharded on yi-9b's heads against the plain decode
+    attention; both ranks must pass."""
+    import tempfile
+    import torch.multiprocessing as mp
+    out_dir = tempfile.mkdtemp(prefix="sharded_", dir=ROOT / "build")
+    world = 2
+    ctx = mp.start_processes(_sharded_rank,
+                             args=(world, _free_port(), out_dir),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARD_TIMEOUT
+    try:
+        while not ctx.join(timeout=1.0):
+            require(time.monotonic() < deadline,
+                    f"sharded (b): ranks done within {SHARD_TIMEOUT} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    for rank in range(world):
+        with open(Path(out_dir) / f"sharded_rank{rank}.json") as f:
+            res = json.load(f)
+        log(f"sharded (b) rank {rank}: gloo mesh (1, 2) on one card: "
+            f"{json.dumps(res)}")
+        for k, v in res["model_rel"].items():
+            require(v <= LOGIT_TOL, f"sharded (b) rank {rank}: {k} logits")
+        fd = res["flash_decode"]
+        require(fd["max_abs_err"] <= FD_TOL,
+                f"sharded (b) rank {rank}: flash_decode_sharded vs plain")
+        require(fd["empty_row_zero"], f"sharded (b) rank {rank}: empty row")
+        require(fd["chunk_written"],
+                f"sharded (b) rank {rank}: the owner's cache write")
+    shutil.rmtree(out_dir)
+
+
+def phase_sharded(p32, p8):
+    t0 = time.perf_counter()
+    counts = _one_rank_nccl(p32, p8)
+    _two_gloo_ranks()
+    log(f"sharded phase: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+# --------------------------------------------------------------------------
 # Phase: train (the training path at full width)
 # --------------------------------------------------------------------------
 
@@ -4125,10 +4389,10 @@ def main(argv=None):
     ccounts = phase_cluster() if "cluster" in phases else None
     if "profile_cluster" in phases:
         phase_profile_cluster()
-    counts = rcounts = dcounts = None
+    counts = rcounts = dcounts = shcounts = None
     # Profiles that the serve phases measured (the sim headline's zoo).
     measured = []
-    if {"model", "serve", "profile"} & set(phases):
+    if {"model", "serve", "profile", "sharded"} & set(phases):
         p32, p8 = _build_params()
         if "model" in phases:
             phase_model(p32, p8)
@@ -4140,6 +4404,8 @@ def main(argv=None):
             del served
         if "profile" in phases:
             phase_profile(p32, p8)
+        if "sharded" in phases:
+            shcounts = phase_sharded(p32, p8)
         del p32, p8
         torch.cuda.empty_cache()
     if {"recurrent", "profile_recurrent"} & set(phases):
@@ -4201,6 +4467,14 @@ def main(argv=None):
                 # behind CNNSelectServer; no int8 kernel: its experts
                 # compute in float only).
                 launches_moe=None if mcounts is None else mcounts[name],
+                # The sharded path's own run: stablelm-1.6b fp32 and
+                # int8 through InferenceEngine(parallel=) on a one-rank
+                # nccl mesh, graph replays included.
+                launches_sharded=None if shcounts is None
+                else shcounts[name],
+                **({} if shcounts is None or name != "int8_matmul" else
+                   {"prefill_launches_sharded":
+                    shcounts["int8_matmul_prefill"]}),
                 # The training path's run: none (it runs the plain
                 # attention; the kernels have no backward).
                 launches_train=None if tcounts is None else tcounts[name],

@@ -60,9 +60,9 @@ def build(args):
     optimizer of `make_optimizer`."""
     if args.mesh_shape:
         raise NotImplementedError(
-            "--mesh-shape: sharded training is not ported yet (a later "
-            "slice of the port: the sharding modules); this launcher "
-            "trains on one device")
+            "--mesh-shape: sharded training (the train profile: FSDP, "
+            "seq_shard) is not ported yet (ROADMAP queue 1 item 3.3); "
+            "this launcher trains on one device")
     cfg = (reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
     opt = make_optimizer(args.optimizer, args.lr, args.steps)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import all_gather, all_reduce
 
 NEG_INF = -1e30
 
@@ -290,14 +291,18 @@ def attention(q, k, v, pos_q, pos_k, cfg: ModelConfig, *, window: int,
               scale=scale, valid_from=valid_from, cache_pos=cache_pos)
 
 
-def _proj(x, w):
+def _proj(x, w, parallel=None):
     """Projection: x's leading two axes are (batch, seq) and every
     trailing x axis contracts against w's leading axes, so one flattened
     (B*T, K) @ (K, N) product covers qkv (d -> (H, hd)), the output
     projection ((H, hd) -> d) and both MLP matmuls. int8 execution
     leaves ({"q","scale"} dicts from `quant.int8.quantize_exec_tree`) go
     to the int8 matmul kernel; float leaves to torch.matmul, with mixed
-    dtypes promoted as in the reference (bf16 x f32 -> f32)."""
+    dtypes promoted as in the reference (bf16 x f32 -> f32).
+    parallel: given by the row-parallel projections (wo, w_down), whose
+    local w holds this rank's rows of the contraction: the product is a
+    partial sum (int8: each output column's scale already applied, as
+    it is the same on every rank), summed over the model axis."""
     B, T = x.shape[0], x.shape[1]
     x2 = x.reshape(B * T, -1)
     if isinstance(w, dict):
@@ -309,12 +314,52 @@ def _proj(x, w):
         out_shape = tuple(w.shape[x.ndim - 2:])
         dt = torch.promote_types(x.dtype, w.dtype)
         out = torch.matmul(x2.to(dt), w.reshape(x2.shape[1], -1).to(dt))
+    if parallel is not None:
+        out = all_reduce(out, parallel, parallel.tp_axis)
     return out.reshape((B, T) + out_shape)
+
+
+def _kv_heads_for(k, Hq: int, parallel):
+    """k or v (B,T,KV,hd) holding every kv head (n_kv_heads does not
+    divide the model axis, so every rank computes them all), cut to the
+    kv heads this rank's q heads [r*Hq/tp, (r+1)*Hq/tp) read (q head h
+    reads kv head h // rep), as a contiguous tensor the kernels take.
+    Where the local q heads cover whole kv groups, or sit inside one
+    group (several ranks then share that kv head), a slice keeps GQA's
+    grouping; otherwise each local q head gets its own copy (rep 1)."""
+    KV, tp = k.shape[2], parallel.tp_size
+    rep, Hl = Hq // KV, Hq // tp
+    lo = parallel.index((parallel.tp_axis,)) * Hl
+    if Hl % rep == 0 or rep % Hl == 0:
+        return k[:, :, lo // rep:lo // rep + max(1, Hl // rep)].contiguous()
+    idx = (lo + torch.arange(Hl, device=k.device)) // rep
+    return k.index_select(2, idx)
+
+
+def _prefill_write(cache, kd, vd, pd, T: int, base: int, S: int):
+    """Write a prefill's k/v/pos (T positions from 0, or a backfill's
+    private row) into this rank's cache slots [base, base + S_loc) of an
+    S-slot cache (base = 0 and S_loc = S unless the sequence is sharded),
+    exactly the slots the unsharded write fills: slot s <- position s
+    for T < S; for T >= S the ring invariant, slot p % S <- position p
+    for the last S positions."""
+    S_loc = cache["k"].shape[1]
+    if T >= S:
+        s = base + torch.arange(S_loc, device=kd.device)
+        src = (T - S) + (s - (T - S)) % S
+        cache["k"][:] = kd[:, src]
+        cache["v"][:] = vd[:, src]
+        cache["pos"][:] = pd[src]
+        return
+    n = min(max(T - base, 0), S_loc)
+    cache["k"][:, :n] = kd[:, base:base + n]
+    cache["v"][:, :n] = vd[:, base:base + n]
+    cache["pos"][:n] = pd[base:base + n]
 
 
 def attn_block(p, x, cfg: ModelConfig, kind: str, positions,
                cache: Optional[dict] = None, cache_pos=None,
-               valid_from=None):
+               valid_from=None, parallel=None):
     """Pre-norm attention block. Returns (x_out, cache).
 
     Train/prefill: cache is None, positions = (T,) absolute positions.
@@ -326,6 +371,15 @@ def attn_block(p, x, cfg: ModelConfig, kind: str, positions,
     valid_from: optional (B,) int32 — per row, the first key position this
     row may attend to (masks left-padding and, on backfilled slots, the
     previous occupant's stale cache entries).
+    parallel: a `sharding.ParallelConfig` (serve profile): p holds this
+    rank's shards (`params.shard_params`), x this rank's batch rows,
+    replicated over the model axis. q and wo run this rank's heads, k
+    and v its kv heads where n_kv_heads divides the model axis (its
+    cache holds those heads) and every kv head otherwise (its cache
+    holds its chunk of the sequence, and decode runs
+    `flash_decode.flash_decode_sharded`); the row-parallel wo and
+    w_down sum over the model axis before the sandwich norms and the
+    residual adds.
 
     The cache tensors are written IN PLACE (the reference returns new
     arrays): each layer's buffers are views into the stacked cache, so an
@@ -340,8 +394,23 @@ def attn_block(p, x, cfg: ModelConfig, kind: str, positions,
     q, k = _qk_norm(q, k, p, eps)
     q = rope(q, positions, theta=cfg.rope_theta, rotary_pct=cfg.rotary_pct)
     k = rope(k, positions, theta=cfg.rope_theta, rotary_pct=cfg.rotary_pct)
+    seq_sharded = (parallel is not None
+                   and cfg.n_kv_heads % parallel.tp_size != 0)
 
-    if cache is not None and T == 1:
+    out = None
+    if cache is not None and T == 1 and seq_sharded:
+        # Sequence-sharded cache: masked local write + partial-softmax
+        # merge over the model axis, every q head on every rank.
+        # (deferred: flash_decode imports this module)
+        from repro_torch.models.flash_decode import flash_decode_sharded
+        Hl = q.shape[2]
+        r = parallel.index((parallel.tp_axis,))
+        qa = all_gather(q, parallel, parallel.tp_axis, 2)
+        out = flash_decode_sharded(
+            qa, k, v, cache["k"], cache["v"], cache["pos"], cache_pos, cfg,
+            parallel, window=window, valid_from=valid_from)
+        out = out[:, :, r * Hl:(r + 1) * Hl]
+    elif cache is not None and T == 1:
         # Decode: ring-buffer write. Windowed layers allocate S == window so
         # the modulo wraps; full layers allocate S == max_seq (identity).
         S = cache["k"].shape[1]
@@ -359,40 +428,42 @@ def attn_block(p, x, cfg: ModelConfig, kind: str, positions,
         # Prefill: attend over the freshly computed k/v and write them into
         # slots 0..T-1 (a group prefill starts at position 0, so slot ==
         # position; a backfill's private row cache is merged at its offset
-        # by the engine). T >= S keeps the ring invariant slot = p % S.
-        S = cache["k"].shape[1]
-        kd, vd = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
-        pd = positions.to(cache["pos"].dtype)
-        if T >= S:
-            slots = torch.arange(T - S, T, device=x.device) % S
-            cache["k"][:, slots] = kd[:, T - S:]
-            cache["v"][:, slots] = vd[:, T - S:]
-            cache["pos"][slots] = pd[T - S:]
-        else:
-            cache["k"][:, :T] = kd
-            cache["v"][:, :T] = vd
-            cache["pos"][:T] = pd
+        # by the engine). T >= S keeps the ring invariant slot = p % S. A
+        # sequence-sharded cache keeps the slots of its chunk.
+        S, base = cache["k"].shape[1], 0
+        if seq_sharded:
+            base = parallel.index((parallel.tp_axis,)) * S
+            S *= parallel.tp_size
+        _prefill_write(cache, k.to(cache["k"].dtype),
+                       v.to(cache["v"].dtype),
+                       positions.to(cache["pos"].dtype), T, base, S)
         pos_q = pos_k = positions
     else:
         pos_q = pos_k = positions
 
-    out = attention(q, k, v, pos_q, pos_k, cfg, window=window,
-                    valid_from=valid_from, cache_pos=cache_pos)
-    out = _proj(out, p["wo"])
+    if out is None:
+        if seq_sharded:
+            k = _kv_heads_for(k, cfg.q_heads_padded, parallel)
+            v = _kv_heads_for(v, cfg.q_heads_padded, parallel)
+        out = attention(q, k, v, pos_q, pos_k, cfg, window=window,
+                        valid_from=valid_from, cache_pos=cache_pos)
+    out = _proj(out, p["wo"], parallel)
     if cfg.sandwich_norm:
         out = rms_norm(out, p["post_attn_norm"], eps)
     x = x + out
 
     if "mlp" in p:
         h = rms_norm(x, p["ln2"], eps)
-        out = mlp(p["mlp"], h, cfg)
+        out = mlp(p["mlp"], h, cfg, parallel)
         if cfg.sandwich_norm:
             out = rms_norm(out, p["post_ffn_norm"], eps)
         x = x + out
     return x, cache
 
 
-def mlp(p, x, cfg: ModelConfig):
+def mlp(p, x, cfg: ModelConfig, parallel=None):
+    """Gated (or plain) MLP. parallel: up and gate hold this rank's
+    columns of ff, down its rows, summed over the model axis."""
     act = act_fn(cfg.mlp_act)
     if cfg.mlp_gated:
         u = _proj(x, p["w_up"])
@@ -400,4 +471,4 @@ def mlp(p, x, cfg: ModelConfig):
         h = act(g) * u
     else:
         h = act(_proj(x, p["w_up"]))
-    return _proj(h, p["w_down"])
+    return _proj(h, p["w_down"], parallel)

@@ -14,7 +14,7 @@ order, with no (T, E, f) or (T, E, d) tensor (at 2048 tokens of
 qwen3-moe the reference's (T, E, d) tensor is 4.3 GB in fp32).
 
 The sharded path (`moe_ffn_sharded`: expert or ff-slice parallelism
-over a mesh) is not ported (ROADMAP queue 1 item 3), and int8 experts
+over a mesh) is not ported (ROADMAP queue 1 item 3.1), and int8 experts
 do not compute, as in the reference."""
 
 from __future__ import annotations
@@ -83,5 +83,5 @@ def moe_block_ffn(p, x, cfg: ModelConfig, parallel=None):
     if parallel is not None:
         raise NotImplementedError(
             "the sharded MoE path (moe_ffn_sharded over a mesh) is not "
-            "ported (ROADMAP queue 1 item 3); call it with parallel=None")
+            "ported (ROADMAP queue 1 item 3.1); call it with parallel=None")
     return moe_ffn_dense(p, x, cfg)

@@ -19,26 +19,32 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ATTN_KINDS, ModelConfig
+from repro_torch.sharding import Spec, shard_leaf, tree_specs
 from repro_torch.utils import dtype_of, resolve_device
 
 
 def block_tree(cfg: ModelConfig, kind: str, mk):
-    """One block's parameter tree via the mk(shape, init) callback."""
+    """One block's parameter tree via the mk(shape, axes, init) callback
+    (axes: the leaf's logical sharding axes, `repro_torch.sharding`)."""
     d = cfg.d_model
     if kind in ATTN_KINDS:
         Hq, KV, hd = cfg.q_heads_padded, cfg.n_kv_heads, cfg.head_dim
-        p = {"ln1": mk((d,), "zeros"),
-             "wq": mk((d, Hq, hd), "fan_in"),
-             "wk": mk((d, KV, hd), "fan_in"),
-             "wv": mk((d, KV, hd), "fan_in"),
-             "wo": mk((Hq, hd, d), "fan_io")}
+        p = {"ln1": mk((d,), ("norm",), "zeros"),
+             "wq": mk((d, Hq, hd), ("hidden_in", "heads", "head_dim"),
+                      "fan_in"),
+             "wk": mk((d, KV, hd), ("hidden_in", "kv_heads", "head_dim"),
+                      "fan_in"),
+             "wv": mk((d, KV, hd), ("hidden_in", "kv_heads", "head_dim"),
+                      "fan_in"),
+             "wo": mk((Hq, hd, d), ("heads", "head_dim", "hidden_in"),
+                      "fan_io")}
         if cfg.qk_norm:
-            p["q_norm"] = mk((hd,), "zeros")
-            p["k_norm"] = mk((hd,), "zeros")
+            p["q_norm"] = mk((hd,), ("norm",), "zeros")
+            p["k_norm"] = mk((hd,), ("norm",), "zeros")
         if cfg.sandwich_norm:
-            p["post_attn_norm"] = mk((d,), "zeros")
-            p["post_ffn_norm"] = mk((d,), "zeros")
-        p["ln2"] = mk((d,), "zeros")
+            p["post_attn_norm"] = mk((d,), ("norm",), "zeros")
+            p["post_ffn_norm"] = mk((d,), ("norm",), "zeros")
+        p["ln2"] = mk((d,), ("norm",), "zeros")
         if kind == "moe":
             p.update(_moe_tree(cfg, mk))
         else:
@@ -46,36 +52,37 @@ def block_tree(cfg: ModelConfig, kind: str, mk):
         return p
     if kind == "rglru":
         w, K = cfg.lru_width, cfg.rglru.conv_width
-        return {"ln1": mk((d,), "zeros"),
-                "w_gate_branch": mk((d, w), "fan_in"),
-                "w_in": mk((d, w), "fan_in"),
-                "conv_w": mk((w, K), "conv"),
-                "w_a": mk((w, w), "fan_in"),
-                "w_x": mk((w, w), "fan_in"),
-                "b_a": mk((w,), "zeros"),
-                "b_x": mk((w,), "zeros"),
-                "lam": mk((w,), "lambda"),
-                "w_out": mk((w, d), "fan_in"),
-                "ln2": mk((d,), "zeros"),
+        return {"ln1": mk((d,), ("norm",), "zeros"),
+                "w_gate_branch": mk((d, w), ("hidden_in", "rnn_width"),
+                                    "fan_in"),
+                "w_in": mk((d, w), ("hidden_in", "rnn_width"), "fan_in"),
+                "conv_w": mk((w, K), ("rnn_width", "conv_k"), "conv"),
+                "w_a": mk((w, w), ("rnn_in", "rnn_width"), "fan_in"),
+                "w_x": mk((w, w), ("rnn_in", "rnn_width"), "fan_in"),
+                "b_a": mk((w,), ("rnn_width",), "zeros"),
+                "b_x": mk((w,), ("rnn_width",), "zeros"),
+                "lam": mk((w,), ("rnn_width",), "lambda"),
+                "w_out": mk((w, d), ("rnn_width", "hidden_in"), "fan_in"),
+                "ln2": mk((d,), ("norm",), "zeros"),
                 "mlp": _mlp_tree(cfg, mk)}
     if kind == "ssd":
         s = cfg.ssd
         di, nh = cfg.d_inner_ssd, cfg.ssd_heads
         gn, K = s.n_groups * s.d_state, s.conv_width
-        return {"ln1": mk((d,), "zeros"),
-                "w_z": mk((d, di), "fan_in"),
-                "w_x": mk((d, di), "fan_in"),
-                "w_B": mk((d, gn), "fan_in"),
-                "w_C": mk((d, gn), "fan_in"),
-                "w_dt": mk((d, nh), "fan_in"),
-                "conv_x": mk((di, K), "conv"),
-                "conv_B": mk((gn, K), "conv"),
-                "conv_C": mk((gn, K), "conv"),
-                "A_log": mk((nh,), "a_log"),
-                "dt_bias": mk((nh,), "dt_bias"),
-                "D": mk((nh,), "ones"),
-                "norm_w": mk((di,), "ones"),
-                "w_out": mk((di, d), "fan_in")}
+        return {"ln1": mk((d,), ("norm",), "zeros"),
+                "w_z": mk((d, di), ("hidden_in", "ssd_inner"), "fan_in"),
+                "w_x": mk((d, di), ("hidden_in", "ssd_inner"), "fan_in"),
+                "w_B": mk((d, gn), ("hidden_in", "ssd_gn"), "fan_in"),
+                "w_C": mk((d, gn), ("hidden_in", "ssd_gn"), "fan_in"),
+                "w_dt": mk((d, nh), ("hidden_in", "ssd_heads"), "fan_in"),
+                "conv_x": mk((di, K), ("ssd_inner", "conv_k"), "conv"),
+                "conv_B": mk((gn, K), ("ssd_gn", "conv_k"), "conv"),
+                "conv_C": mk((gn, K), ("ssd_gn", "conv_k"), "conv"),
+                "A_log": mk((nh,), ("ssd_heads",), "a_log"),
+                "dt_bias": mk((nh,), ("ssd_heads",), "dt_bias"),
+                "D": mk((nh,), ("ssd_heads",), "ones"),
+                "norm_w": mk((di,), ("ssd_inner",), "ones"),
+                "w_out": mk((di, d), ("ssd_inner", "hidden_in"), "fan_in")}
     raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -83,36 +90,42 @@ def _moe_tree(cfg: ModelConfig, mk):
     """The router (d, E) and the experts' stacked FFN weights: up and
     gate (E, d, f), down (E, f, d)."""
     d, m = cfg.d_model, cfg.moe
-    p = {"router": mk((d, m.n_experts), "fan_in"),
-         "w_up": mk((m.n_experts, d, m.d_ff_expert), "fan_in3")}
+    E, f = m.n_experts, m.d_ff_expert
+    p = {"router": mk((d, E), ("hidden_in", "router"), "fan_in"),
+         "w_up": mk((E, d, f), ("experts", "expert_in", "expert_ff"),
+                    "fan_in3")}
     if cfg.mlp_gated:
-        p["w_gate"] = mk((m.n_experts, d, m.d_ff_expert), "fan_in3")
-    p["w_down"] = mk((m.n_experts, m.d_ff_expert, d), "fan_in3")
+        p["w_gate"] = mk((E, d, f), ("experts", "expert_in", "expert_ff"),
+                         "fan_in3")
+    p["w_down"] = mk((E, f, d), ("experts", "expert_ff", "expert_in"),
+                     "fan_in3")
     return p
 
 
 def _mlp_tree(cfg: ModelConfig, mk):
     d, f = cfg.d_model, cfg.d_ff
-    p = {"w_up": mk((d, f), "fan_in"),
-         "w_down": mk((f, d), "fan_in")}
+    p = {"w_up": mk((d, f), ("hidden_in", "ff"), "fan_in"),
+         "w_down": mk((f, d), ("ff", "hidden_in"), "fan_in")}
     if cfg.mlp_gated:
-        p["w_gate"] = mk((d, f), "fan_in")
+        p["w_gate"] = mk((d, f), ("hidden_in", "ff"), "fan_in")
     return p
 
 
 def model_tree(cfg: ModelConfig, mk, mk_stacked):
-    """Full model parameter tree; mk_stacked(shape, init, n) creates a
-    leaf with a leading scan-group axis of size n."""
+    """Full model parameter tree; mk_stacked(shape, axes, init, n)
+    creates a leaf with a leading scan-group axis of size n."""
     d = cfg.d_model
     params = {
-        "embed": mk((cfg.padded_vocab, d), "embed"),
-        "final_norm": mk((d,), "zeros"),
+        "embed": mk((cfg.padded_vocab, d), ("vocab", "embed"), "embed"),
+        "final_norm": mk((d,), ("norm",), "zeros"),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = mk((d, cfg.padded_vocab), "fan_in")
+        params["lm_head"] = mk((d, cfg.padded_vocab), ("hidden_in", "vocab"),
+                               "fan_in")
     G = cfg.n_groups_scan
     params["blocks"] = tuple(
-        block_tree(cfg, kind, lambda shape, init: mk_stacked(shape, init, G))
+        block_tree(cfg, kind,
+                   lambda shape, axes, init: mk_stacked(shape, axes, init, G))
         for kind in cfg.pattern)
     params["tail"] = tuple(block_tree(cfg, kind, mk)
                            for kind in cfg.tail_kinds)
@@ -126,13 +139,31 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     dtype = dtype_of(cfg.param_dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    def mk(shape, init):
+    def mk(shape, axes, init):
         return _draw(gen, shape, init, dtype, device)
 
-    def mk_stacked(shape, init, n):
+    def mk_stacked(shape, axes, init, n):
         return _draw(gen, (n,) + shape, init, dtype, device, stacked=True)
 
     return model_tree(cfg, mk, mk_stacked)
+
+
+def param_logical_axes(cfg: ModelConfig) -> dict:
+    """The parameter tree's logical sharding axes, one tuple a leaf
+    (stacked leaves lead with "layers")."""
+    return model_tree(cfg, lambda shape, axes, init: axes,
+                      lambda shape, axes, init, n: ("layers",) + axes)
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree as meta tensors: shapes and dtypes, no
+    storage."""
+    dtype = dtype_of(cfg.param_dtype)
+
+    def meta(shape):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return model_tree(cfg, lambda shape, axes, init: meta(shape),
+                      lambda shape, axes, init, n: meta((n,) + shape))
 
 
 def _uniform(gen, shape, lo, hi, device):
@@ -261,3 +292,35 @@ def from_jax(tree, device="cuda"):
     {"q", "scale"} leaves are kept as they are."""
     device = resolve_device(device)
     return tree_map(lambda a: _to_torch(a, device), tree)
+
+
+def shard_params(full_tree, cfg: ModelConfig, parallel):
+    """This rank's shards of a full parameter tree, cut once by the
+    specs of `param_logical_axes` (`repro_torch.sharding.tree_specs`)
+    into contiguous tensors that share no storage with the full tree (so
+    it can be freed, and no strided slice reaches a kernel). An int8
+    {"q", "scale"} leaf: q follows the weight's spec, scale (one per
+    output channel, size 1 on the contracted axes) its output axes."""
+    sizes, coords = parallel.sizes, parallel.coords()
+    specs = tree_specs(param_logical_axes(cfg), parallel, cfg)
+
+    def cut(leaf, spec):
+        if isinstance(leaf, dict):
+            q = leaf["q"]
+            s = leaf["scale"]
+            sspec = Spec(*(e if s.shape[i] == q.shape[i] else None
+                           for i, e in enumerate(spec)))
+            return {"q": shard_leaf(q, spec, sizes, coords),
+                    "scale": shard_leaf(s, sspec, sizes, coords)}
+        return shard_leaf(leaf, spec, sizes, coords)
+    return _map_spec(cut, full_tree, specs)
+
+
+def _map_spec(fn, tree, specs):
+    """fn(leaf, spec) over a param tree and its spec tree (an int8
+    {"q", "scale"} dict is one leaf)."""
+    if isinstance(tree, dict) and set(tree) != {"q", "scale"}:
+        return {k: _map_spec(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_spec(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)

@@ -24,6 +24,17 @@ card a step runs eagerly only to warm up. The backfill pair
 (`prefill_row`) runs eagerly into the same cache. On CPU tensors the
 same step functions run eagerly.
 
+With `parallel` (a `sharding.ParallelConfig`, serve profile,
+attention-only patterns) the engine serves one rank's shards
+(`models.params.shard_params`) over a sequence- or head-sharded cache:
+every rank makes the same host calls with the whole batch, each data
+rank computes its own rows, and `run_prefill` / `run_decode` /
+`prefill_row` return the all-gathered logits, so every rank returns
+what the unsharded engine returns. On the card the graphs capture the
+NCCL collectives; a gloo group cannot be captured, so graphs with a
+gloo group on CUDA raise and the caller passes graphs=False (the steps
+then run eagerly; nothing switches graphs off by itself).
+
 Timed sections end with a device synchronise when the engine runs on
 CUDA, so they measure execution, not enqueue.
 """
@@ -40,9 +51,11 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ATTN_KINDS, ModelConfig
-from repro_torch.models.model import (decode_step, forward, init_cache,
-                                      prefill)
+from repro_torch.models.model import (check_parallel, decode_step, forward,
+                                      init_cache, prefill,
+                                      whole_embed_table)
 from repro_torch.models.params import tree_leaves
+from repro_torch.sharding import all_gather
 from repro_torch.utils import resolve_device
 
 
@@ -71,24 +84,39 @@ class _Graph:
 class InferenceEngine:
     """One model's runnable engine with a fixed batch capacity.
 
-    params must already live on `device` (the card by default)."""
+    params must already live on `device` (the card by default); with
+    `parallel`, they are this rank's shards. graphs: on the card, capture
+    the steps as CUDA graphs (the default); False runs them eagerly,
+    which a gloo group on the card needs."""
 
     def __init__(self, cfg: ModelConfig, params, *, batch_size: int,
-                 max_seq: int, device="cuda"):
+                 max_seq: int, device="cuda", parallel=None,
+                 graphs: bool = True):
         self.cfg = cfg
-        self.params = params
         self.batch_size = batch_size
         self.max_seq = max_seq
+        self.parallel = parallel
         self.device = resolve_device(device)
+        self._graphs_on = graphs and self.device.type == "cuda"
+        if parallel is not None:
+            check_parallel(cfg, parallel)
+            if self._graphs_on and _has_gloo_group(parallel):
+                raise ValueError(
+                    "CUDA graphs cannot capture gloo collectives: pass "
+                    "graphs=False for a gloo mesh on the card")
         for leaf in tree_leaves(params):
             if leaf.device.type != self.device.type:
                 raise ValueError(
                     f"params live on {leaf.device}, engine device is "
                     f"{self.device}; move them first (no implicit copy)")
+        # A tied table's d, sharded over data, is gathered here once
+        # rather than in every step.
+        self.params = whole_embed_table(params, cfg, parallel)
         self.stats = EngineStats()
         # Attention layers keep a KV cache, recurrent layers (RG-LRU,
         # SSD) a fixed-size state; both live here for the engine's life.
-        self.cache = init_cache(cfg, batch_size, max_seq, device=self.device)
+        self.cache = init_cache(cfg, batch_size, max_seq, device=self.device,
+                                parallel=parallel)
         self.cache_pos = 0       # tokens in context; 0: no group prefilled
         # The steps' static inputs.
         i32 = dict(dtype=torch.int32, device=self.device)
@@ -98,7 +126,7 @@ class InferenceEngine:
         self._prompts = {}       # prompt length -> (B, T) tokens
         self._graphs = {}        # "decode" or a prompt length -> _Graph
         self._backfill_warm = False
-        if self.device.type == "cuda":
+        if self._graphs_on:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
         kinds = set(cfg.pattern) | set(cfg.tail_kinds)
@@ -117,13 +145,14 @@ class InferenceEngine:
         """Group prefill into the persistent cache. Returns the last
         position's logits (B, 1, V)."""
         logits, _ = prefill(self.params, tokens, self.cfg, self.max_seq,
-                            logits_last_only=True, valid_from=valid_from,
-                            cache=self.cache)
+                            parallel=self.parallel, logits_last_only=True,
+                            valid_from=valid_from, cache=self.cache)
         return logits
 
     def _decode(self, token, cache_pos, valid_from):
         logits, _ = decode_step(self.params, token, self.cache, cache_pos,
-                                self.cfg, valid_from=valid_from)
+                                self.cfg, parallel=self.parallel,
+                                valid_from=valid_from)
         return logits
 
     def _prefill_row(self, tokens, offset: int, valid_from):
@@ -135,27 +164,61 @@ class InferenceEngine:
         T = tokens.shape[1]
         positions = offset + torch.arange(T, dtype=torch.int32,
                                           device=tokens.device)
-        cache = init_cache(self.cfg, 1, self.max_seq, device=tokens.device)
-        logits, extras = forward(self.params, tokens, self.cfg, cache=cache,
+        cache = init_cache(self.cfg, 1, self.max_seq, device=tokens.device,
+                           parallel=self.parallel)
+        logits, extras = forward(self.params, tokens, self.cfg,
+                                 parallel=self.parallel, cache=cache,
                                  positions=positions, logits_last_only=True,
                                  valid_from=valid_from)
         return logits, extras["cache"]
 
     @staticmethod
-    def _merge(bcache, rcache, row: int, offset: int, T: int):
+    def _merge(bcache, rcache, row: int, offset: int, T: int,
+               seq_parallel=None, write: bool = True):
         # Copy the row cache's first T seq slots into batch slot `row` at
         # seq offset `offset`, in place. The shared (S,) pos array needs
         # no update: group prefill + aligned decode already maintain
         # pos[s] == s for every slot below cache_pos.
+        # seq_parallel: the caches are this rank's chunks of a sequence
+        # sharded over its model axis: the row cache is gathered over it
+        # first (row slot j lands in slot offset + j, in another rank's
+        # chunk in general), and this rank copies what lands in its
+        # chunk. write=False: take part in the gathers only.
+        base = 0
         for bd, rd in zip(bcache["blocks"] + bcache["tail"],
                           rcache["blocks"] + rcache["tail"]):
             for key in ("k", "v"):
                 b, r = bd[key], rd[key]
+                S_loc = b.shape[b.ndim - 3]
+                if seq_parallel is not None:
+                    tp = seq_parallel.tp_axis
+                    r = all_gather(r, seq_parallel, tp, b.ndim - 3)
+                    base = seq_parallel.index((tp,)) * S_loc
+                lo, hi = max(offset, base), min(offset + T, base + S_loc)
+                if not write or lo >= hi:
+                    continue
+                src, dst = slice(lo - offset, hi - offset), \
+                    slice(lo - base, hi - base)
                 if b.ndim == 5:     # stacked blocks: (G, B, S, KV, hd)
-                    b[:, row, offset:offset + T] = r[:, 0, :T].to(b.dtype)
+                    b[:, row, dst] = r[:, 0, src].to(b.dtype)
                 else:               # tail: (B, S, KV, hd)
-                    b[row, offset:offset + T] = r[0, :T].to(b.dtype)
+                    b[row, dst] = r[0, src].to(b.dtype)
         return bcache
+
+    def _merge_row(self, rcache, row: int, offset: int, T: int):
+        """`_merge` of a backfilled row into the engine's cache. Sharded:
+        the row (computed on every data rank) goes to the data rank that
+        holds batch row `row`, at its local index."""
+        par = self.parallel
+        if par is None:
+            return self._merge(self.cache, rcache, row, offset, T)
+        write = True
+        if par.data_ok(self.batch_size):
+            Bl = self.batch_size // par.dp_size
+            write = par.index(par.data_axes) == row // Bl
+            row %= Bl
+        seq = par if self.cfg.n_kv_heads % par.tp_size else None
+        return self._merge(self.cache, rcache, row, offset, T, seq, write)
 
     # -- the steps over their static inputs ------------------------------
 
@@ -181,7 +244,7 @@ class InferenceEngine:
         """On the card: run on the stream the graphs are captured on
         (so what a first call sets up per stream is ready for capture),
         after the current stream's work and before its later work."""
-        if self.device.type != "cuda":
+        if not self._graphs_on:
             yield
             return
         main = torch.cuda.current_stream(self.device)
@@ -206,8 +269,9 @@ class InferenceEngine:
 
     def _run(self, key):
         """The step `key` on the static inputs: on the card a replay of
-        its graph, on the CPU an eager call. Returns its logits."""
-        if self.device.type != "cuda":
+        its graph, on the CPU (or with graphs=False) an eager call.
+        Returns its logits."""
+        if not self._graphs_on:
             return self._step(key)()
         g = self._graphs[key]
         g.graph.replay()
@@ -247,9 +311,9 @@ class InferenceEngine:
                 # Run the backfill pair too: a first mid-group join must
                 # not charge the cold start to a measured request.
                 _, rc = self._prefill_row(prompt[:1], 0, self.valid_from[:1])
-                self._merge(self.cache, rc, 0, 0, prompt_len)
+                self._merge_row(rc, 0, 0, prompt_len)
                 self._backfill_warm = True
-        if self.device.type == "cuda":
+        if self._graphs_on:
             for key in keys:
                 self._capture(key)
         self.cache_pos = 0
@@ -285,7 +349,7 @@ class InferenceEngine:
                              f"batch_size is {self.batch_size}")
         T = tokens.shape[1]
         vf = self._valid_from_for(tokens, lengths)
-        if self.device.type == "cuda" and T not in self._graphs:
+        if self._graphs_on and T not in self._graphs:
             self.warmup(T)
         self._sync()
         t0 = time.perf_counter()
@@ -354,7 +418,7 @@ class InferenceEngine:
         logits, rcache = self._prefill_row(
             self._host(prompt[None]).to(self.device), offset,
             self._host([vf_row]).to(self.device))
-        self._merge(self.cache, rcache, slot, offset, T)
+        self._merge_row(rcache, slot, offset, T)
         self.valid_from[slot] = vf_row
         out = logits[0, 0].cpu().numpy()
         self._sync()
@@ -426,3 +490,9 @@ class InferenceEngine:
                 "prefill_ms": float(np.mean(pre_c)),
                 "per_token_ms": float(np.mean(dec_c) / max(1, n_tokens)),
                 "resident_bytes": self.resident_bytes}
+
+
+def _has_gloo_group(parallel) -> bool:
+    import torch.distributed as dist
+    return any(dist.get_backend(parallel.mesh.get_group(a)) == "gloo"
+               for a in parallel.mesh.mesh_dim_names)

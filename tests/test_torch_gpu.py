@@ -1146,3 +1146,155 @@ def test_cluster_scan_launch_failure_raises(cuda, monkeypatch):
                                            "failed"):
         CS.cluster_scan(*args, True)
     assert CS.cluster_scan.launches == before
+
+
+# -- the sharded serve path ----------------------------------------------------
+
+def _one_rank_group(backend):
+    """A one-rank process group of `backend` over localhost."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+
+
+def _sharded_engine_run(eng, prompts, toks):
+    out = [eng.run_prefill(prompts, lengths=[12, 5, 9, 1])]
+    out += [eng.run_decode(t) for t in toks[:3]]
+    out.append(eng.prefill_row(prompts[2], 1, length=7))
+    out += [eng.run_decode(t) for t in toks[3:]]
+    return out
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_sharded_engine_one_rank_nccl_matches_unsharded(cuda, quant):
+    """InferenceEngine(parallel=) on a one-rank NCCL mesh (1, 1), its
+    collectives captured in the graphs: every step within 1e-4 of
+    max|logit| of the unsharded engine, and bit for bit its own eager
+    run (graphs=False)."""
+    import dataclasses
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.params import shard_params
+    from repro_torch.quant.int8 import quantize_exec_tree
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.sharding import make_parallel
+    cfg = dataclasses.replace(reduced_config("yi_9b"), attn_impl="cuda")
+    params = init_params(cfg, 0, device="cuda")
+    if quant:
+        params = quantize_exec_tree(params)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (4, 12)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab, (6, 4, 1)).astype(np.int32)
+    kw = dict(batch_size=4, max_seq=32, device="cuda")
+    want = _sharded_engine_run(InferenceEngine(cfg, params, **kw), prompts,
+                               toks)
+    _one_rank_group("nccl")
+    try:
+        par = make_parallel(make_mesh((1, 1), ("data", "model")), "serve")
+        shards = shard_params(params, cfg, par)
+        eng = InferenceEngine(cfg, shards, parallel=par, **kw)
+        got = _sharded_engine_run(eng, prompts, toks)
+        eager = _sharded_engine_run(InferenceEngine(
+            cfg, shards, parallel=par, graphs=False, **kw), prompts, toks)
+        assert eng.stats.graph_replays > 0
+    finally:
+        dist.destroy_process_group()
+    for g, w, e in zip(got, want, eager):
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max())
+        np.testing.assert_array_equal(g, e)
+
+
+def test_sharded_engine_refuses_graphs_on_gloo(cuda):
+    """gloo collectives cannot be captured: graphs with a gloo mesh on
+    the card raise; graphs=False runs."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.params import shard_params
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.sharding import make_parallel
+    cfg = dataclasses.replace(reduced_config("stablelm_1_6b"),
+                              attn_impl="cuda")
+    _one_rank_group("gloo")
+    try:
+        par = make_parallel(make_mesh((1, 1), ("data", "model")), "serve")
+        shards = shard_params(init_params(cfg, 0, device="cuda"), cfg, par)
+        kw = dict(batch_size=2, max_seq=16, device="cuda", parallel=par)
+        with pytest.raises(ValueError, match="graphs=False"):
+            InferenceEngine(cfg, shards, **kw)
+        InferenceEngine(cfg, shards, graphs=False, **kw)
+    finally:
+        dist.destroy_process_group()
+
+
+class _RankMesh:
+    """A mesh's names and shape, and one rank's coordinates (what
+    shard_params reads)."""
+
+    def __init__(self, shape, coords):
+        self.mesh_dim_names = tuple(shape)
+        self.shape = tuple(shape.values())
+        self._coords = coords
+
+    def get_local_rank(self, axis):
+        return self._coords[axis]
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_shard_params_on_cuda_feed_the_kernels(cuda, rank):
+    """shard_params on the card (model rank `rank` of 2): every shard
+    contiguous, and the int8 wrapper takes every projection's column
+    (q, k, v, up, gate) and row (o, down) shard with its scales, within
+    the int8 tolerance of the plain version; flash and decode take the
+    local heads."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.params import shard_params, tree_leaves
+    from repro_torch.quant.int8 import quantize_exec_tree
+    from repro_torch.sharding import make_parallel
+    import dataclasses
+    cfg = dataclasses.replace(get_config("stablelm_1_6b"), n_layers=2)
+    full = quantize_exec_tree(init_params(cfg, 0, device="cuda"))
+    par = make_parallel(_RankMesh({"data": 1, "model": 2},
+                                  {"data": 0, "model": rank}), "serve")
+    shards = shard_params(full, cfg, par)
+    assert all(t.is_contiguous() and t.is_cuda for t in tree_leaves(shards))
+    blk = shards["blocks"][0]
+    leaves = {k: blk[k] for k in ("wq", "wk", "wv", "wo")}
+    leaves.update(blk["mlp"])
+    for key, w in leaves.items():
+        q, s = w["q"][0], w["scale"][0]
+        contracted = 2 if key == "wo" else 1
+        K = int(torch.tensor(q.shape[:contracted]).prod())
+        w2, s2 = q.reshape(K, -1), s.reshape(-1)
+        for M in (4, 64):       # the decode path and the prefill path
+            x = torch.randn((M, K), generator=cuda, device="cuda")
+            got = ops.int8_matmul(x, w2, s2)
+            ref = R.int8_matmul_ref(x, w2, s2)
+            torch.testing.assert_close(
+                got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+    Hl, hd = cfg.n_heads // 2, cfg.head_dim
+    assert blk["wq"]["q"].shape[2] == Hl
+    q = torch.randn((2, 8, Hl, hd), generator=cuda, device="cuda")
+    k = torch.randn((2, 8, Hl, hd), generator=cuda, device="cuda")
+    v = torch.randn((2, 8, Hl, hd), generator=cuda, device="cuda")
+    pos = torch.arange(8, device="cuda")
+    _assert_close(ops.flash_attention(q, k, v, pos, pos),
+                  R.flash_attention_ref(*(t.transpose(1, 2) for t in
+                                          (q, k, v))).transpose(1, 2),
+                  TOL[torch.float32])
+    cpos = torch.tensor(7, dtype=torch.int32, device="cuda")
+    _assert_close(ops.decode_attention(q[:, :1], k, v, pos, cpos),
+                  R.decode_attention_ref(q[:, 0], k.transpose(1, 2),
+                                         v.transpose(1, 2), pos, 7)[:, None],
+                  TOL[torch.float32])

@@ -159,15 +159,29 @@ def test_remat_block_gives_the_same_loss_and_grads():
 
 
 def test_forward_aux_loss_and_remat_modes():
+    """forward's aux loss and cache on a model without MoE, and
+    remat="moe_save" (each group recomputed, the MoE blocks' outputs
+    kept) giving the reference's loss and every grad at this file's
+    tolerances, on reduced qwen3-moe-235b (with its load-balance loss)
+    and on stablelm, which has no MoE block and computes as "block"."""
     _, tcfg, _, tp = _weights("stablelm_1_6b")
     _, tb = _batch(tcfg)
     logits, extras = forward(tp, tb["inputs"], tcfg)
     aux = extras["aux_loss"]
     assert aux.shape == () and aux.dtype == torch.float32 and aux == 0
     assert extras["cache"] is None
-    with pytest.raises(NotImplementedError, match=r"later PR \(ROADMAP"):
-        forward(tp, tb["inputs"], dataclasses.replace(tcfg,
-                                                      remat="moe_save"))
+    for arch in ("qwen3_moe_235b", "stablelm_1_6b"):
+        jcfg, tcfg, jp, tp = _weights(arch, remat="moe_save")
+        jb, tb = _batch(tcfg)
+        (jtot, jm), jg = jax.value_and_grad(
+            JS.make_loss_fn(jcfg, aux_weight=0.01), has_aux=True)(jp, jb)
+        (ttot, tm), tg = TS.value_and_grad(TS.make_loss_fn(tcfg, 0.01),
+                                           tp, tb)
+        np.testing.assert_allclose(float(ttot), float(jtot), rtol=LOSS_RTOL)
+        np.testing.assert_allclose(float(tm["aux_loss"]),
+                                   float(jm["aux_loss"]), rtol=LOSS_RTOL)
+        assert (float(tm["aux_loss"]) > 0) == (arch == "qwen3_moe_235b")
+        _close_leaves(tg, jg, GRAD_TOL)
 
 
 # --------------------------------------------------------------------------
