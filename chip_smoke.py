@@ -108,16 +108,23 @@ Phases (each prints its results, one line each):
   sharded  the tensor-parallel serve path on torch.distributed: (a) a
            one-rank NCCL group, mesh (1, 1): full-width stablelm-1.6b
            fp32 and int8 through InferenceEngine(parallel=) with its
-           graphs (the NCCL collectives captured), every step within
-           1e-4 of max|logit| of the unsharded engine and bit for bit
-           its own eager run, every kernel launched (launches_sharded);
-           (b) two gloo ranks on the one card (NCCL refuses two ranks on
-           one device), mesh (1, 2): full-width stablelm-1.6b fp32
-           forward, prefill and decode eagerly against the unsharded
-           run, and flash_decode_sharded at yi-9b's heads (32/4/128) on
-           a 4096-slot ring past its wrap, split over the two ranks,
-           with valid_from and a row that attends no slot, against the
-           plain decode attention over the whole cache
+           graphs (all_reduce makes its NCCL call over an axis of size
+           1, and the graphs capture it; the calls are counted), every
+           step within 1e-4 of max|logit| of the unsharded engine and
+           bit for bit its own eager run, every kernel launched
+           (launches_sharded); then all_reduce and the NCCL calls behind
+           all_gather and reduce_scatter captured in one CUDA graph on
+           the group and replayed on new inputs; (b) two gloo ranks on
+           the one card (NCCL refuses two ranks on one device), mesh (1,
+           2): full-width stablelm-1.6b fp32 forward, prefill and decode
+           eagerly against the unsharded run, and flash_decode_sharded
+           at yi-9b's heads (32/4/128) on a 4096-slot ring past its
+           wrap, split over the two ranks, with valid_from and a row
+           that attends no slot, against the plain decode attention over
+           the whole cache; then, on mesh (2, 1) over the same ranks,
+           moe_ffn_sharded (qwen3-moe reduced in ep and ep2d, grok-1
+           reduced in tp and tp2d, capacity n_experts) against
+           moe_ffn_dense on the whole batch
   recurrent
            recurrentgemma-2b (fp32, int8) and mamba2-2.7b (fp32) at their
            published size, batch 4, max_seq 4096: the engine's graphs
@@ -127,9 +134,13 @@ Phases (each prints its results, one line each):
            layers' ring wraps, then T = 2560 and 8 steps; mamba2: T =
            512 and 300, 8 steps each); recurrentgemma's cuda path
            against its naive path (int8: on the dequantized weights);
-           mamba2's steps against one forward over the sequence; then
-           the recurrent path: CNNSelectServer over the three
-           candidates, whose graph replays must launch every kernel
+           mamba2's steps against one forward over the sequence; each
+           candidate's shards (views of its tree) through
+           InferenceEngine(parallel=) with graphs on a one-rank NCCL
+           mesh (1, 1), fed the unsharded engine's tokens, bit for bit
+           its logits (launches_sharded_recurrent); then the recurrent
+           path: CNNSelectServer over the three candidates, whose
+           graph replays must launch every kernel
   dense    the five attention-only architectures at published width and
            depth, batch 4, one model at a time (each one's peak memory
            printed, at most 75 GB): gemma2-9b fp32 and int8 through the
@@ -162,7 +173,14 @@ Phases (each prints its results, one line each):
            requests through CNNSelectServer with this engine as its one
            candidate, whose graph replays must launch flash_attention
            and decode_attention (the experts compute in float only, so
-           no int8 kernel)
+           no int8 kernel); then the sharded MoE (moe_ffn_sharded) on
+           the same tree through InferenceEngine(parallel=) with graphs
+           on a one-rank NCCL mesh (1, 1), in moe_mode ep2d, on
+           the sharded phase's schedule (B = 4, T = 64 ragged, 16
+           steps, a backfill): at capacity_factor = n_experts within
+           1e-4 of max|logit| of the unsharded engine, at the config's
+           1.25 (pairs drop, logged a step) graphs bit for bit eager
+           (launches_sharded_moe)
   train    the training path (src/repro_torch/launch/train.py) at
            full width and depth: stablelm-1.6b fp32 under
            mixed_precision(adamw(cosine)), as the launcher builds it, 20
@@ -334,6 +352,10 @@ PEAK_LIMIT_BYTES = 75e9
 # MOE_REQUESTS requests through the server; MOE_TIMED calls a step time.
 MOE_ARCH, MOE_ACT_BYTES = "qwen3_moe_235b", 4e9
 MOE_REQUESTS, MOE_TIMED = 6, 3
+# The sharded MoE's layout on the card's one-rank mesh, where every mode
+# computes alike (each axis of size 1); phase sharded (b) runs all four
+# on two ranks.
+MOE_SHARD_MODES = ("ep2d",)
 # The decode main shape: the ragged prefill's rows (valid_from = T_PREFILL
 # - lengths) 16 tokens on, and the profile's decode step's context.
 DECODE_CPOS, DECODE_VF = T_PREFILL + 16, [0, 212, 383, 475]
@@ -2900,6 +2922,7 @@ def phase_recurrent(params):
     from repro_torch.models.model import forward
     from repro_torch.serving.engine import InferenceEngine
     rng = np.random.default_rng(3)
+    served = {}
     for name in ("recurrentgemma_fp32", "recurrentgemma_int8",
                  "mamba2_fp32"):
         p = params[name]
@@ -2923,6 +2946,7 @@ def phase_recurrent(params):
         _bit_equal(f"recurrent {name} ({_arch(name)} full width, groups "
                    f"{groups})",
                    got, want, eng.stats)
+        served[name] = (got, fed)
         del eng
         torch.cuda.empty_cache()
         if name.startswith("recurrent"):
@@ -2964,6 +2988,79 @@ def phase_recurrent(params):
                     f"{name}: decode vs forward {worst:.2e}")
         torch.cuda.empty_cache()
         log(f"recurrent {name}: {time.perf_counter() - t0:.1f} s")
+    return _recurrent_sharded(params, served)
+
+
+def _fed_groups(eng, fed):
+    """The tokens `_served_groups` fed, through another engine: the
+    logits of every step."""
+    out = []
+    for toks in fed:
+        out.append(eng.run_prefill(toks[0]))
+        out += [eng.run_decode(tok) for tok in toks[1:]]
+    return out
+
+
+def _recurrent_sharded(params, served):
+    """Each recurrent candidate through InferenceEngine(parallel=) with
+    its graphs on a one-rank NCCL mesh (1, 1) (RG-LRU width, SSD heads
+    and recurrentgemma's MLP over the model axis, all of it on the one
+    rank), fed the tokens the unsharded engine was fed: bit for bit its
+    logits at every step (on one rank the sharded blocks run the
+    unsharded operations: the gathered conv output is u itself, the SSD
+    norm's averaged mean square its own). Returns the kernels' launches
+    in these runs (replays included)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.sharding import make_parallel
+    t0 = time.perf_counter()
+    W = _cfg("recurrentgemma_fp32").lru_width
+    # Each rank gathers the other model ranks' (B/dp, T, W/tp) slices of
+    # the RG-LRU conv output a layer (fp32).
+    log(f"recurrent sharded bytes into each rank an RG-LRU layer "
+        f"(computed, not measured), recurrentgemma-2b on mesh (2, 2): "
+        f"decode B={RG_B}: {(RG_B // 2) * W * 4 // 2} B; prefill B={RG_B} "
+        f"T={RG_T[0]}: {(RG_B // 2) * RG_T[0] * W * 4 // 2} B")
+    counts = {name: 0 for name in ops.KERNELS}
+    counts["int8_matmul_prefill"] = 0
+    with _nccl_one_rank() as mesh:
+        par = make_parallel(mesh, "serve")
+        for name, p in params.items():
+            cfg = _cfg(name)
+            want, fed = served[name]
+            shards = _one_rank_shards(p, cfg, par,
+                                      f"recurrent sharded {name}")
+            ops.reset_launch_counts()
+            with torch.no_grad(), _counting_all_reduce() as calls:
+                eng = InferenceEngine(cfg, shards, parallel=par,
+                                      batch_size=RG_B, max_seq=RG_MAX_SEQ,
+                                      device="cuda")
+                got = _fed_groups(eng, fed)
+            for k, n in ops.launch_counts().items():
+                counts[k] += n
+            counts["int8_matmul_prefill"] += ops.int8_prefill_launches()
+            unequal = [i for i, (g, w) in enumerate(zip(got, want))
+                       if not np.array_equal(g, w)]
+            st = eng.stats
+            log(f"recurrent sharded {name}: nccl mesh (1, 1), graphs, "
+                f"{len(got)} steps against the unsharded engine's: "
+                f"bit-identical at {len(got) - len(unequal)} (unequal: "
+                f"{unequal}), max |dlogit|/max|logit| = "
+                f"{_rel(got, want):.3e}; captures={st.graph_captures} "
+                f"replays={st.graph_replays}; nccl all_reduce calls from "
+                f"the host (eager and captures) {len(calls)}")
+            require(calls, f"recurrent sharded {name}: no nccl all_reduce")
+            require(len(got) == len(want) and not unequal,
+                    f"recurrent sharded {name}: logits != unsharded")
+            require(st.graph_replays > 0,
+                    f"recurrent sharded {name}: no replay")
+            del eng, shards
+            torch.cuda.empty_cache()
+    log(f"recurrent sharded launches: {json.dumps(counts)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("flash_attention", "decode_attention", "int8_matmul"):
+        require(counts[name] > 0, f"recurrent sharded: {name} launched")
+    return counts
 
 
 def _serve_candidates(tag, engines, acc, n_requests, seed, kernels=None):
@@ -3348,7 +3445,7 @@ def _moe_step_times(eng, rng):
     out["decode_eager"] = _timed(step, MOE_TIMED)
     with_ffn = _graph_ms(step, MOE_TIMED)
     ffn = M.moe_block_ffn
-    M.moe_block_ffn = lambda p_, x, cfg_: (
+    M.moe_block_ffn = lambda p_, x, cfg_, parallel=None: (
         torch.zeros_like(x), torch.zeros((), device=x.device))
     try:
         without = _graph_ms(step, MOE_TIMED)
@@ -3411,7 +3508,142 @@ def phase_moe():
         counts, _ = _serve_candidates(
             "moe", {"qwen3_moe_fp32": eng}, {"qwen3_moe_fp32": 0.8},
             MOE_REQUESTS, 10, kernels=("flash_attention", "decode_attention"))
-        del eng, p
+        del eng
+        shcounts = _moe_sharded(p, cfg)
+        del p
+    return counts, shcounts
+
+
+@contextlib.contextmanager
+def _counting_drops():
+    """While the block runs (eagerly), each sharded MoE layer's dropped
+    (token, choice) pairs, appended to the list it yields: the pairs
+    sent to the dispatch buffer's dump slot (on a one-rank mesh every
+    expert is local, so each is a pair past its expert's capacity)."""
+    from repro_torch.models import moe as M
+    real, drops = M._dispatch_slots, []
+
+    def counted(idx, E_loc, off, C):
+        slot = real(idx, E_loc, off, C)
+        drops.append(int((slot == E_loc * C).sum()))
+        return slot
+    M._dispatch_slots = counted
+    try:
+        yield drops
+    finally:
+        M._dispatch_slots = real
+
+
+def moe_mode_bytes(cfg, dp, tp, batch, T, es=4):
+    """Computed (not measured): the bytes each rank of a (dp, tp) mesh
+    receives a MoE layer a step in each moe_mode, beyond the closing
+    sum over model that every mode makes: ep / tp gather the rest of
+    its experts' d (its E/tp experts, or an ff/tp slice of all E) over
+    data; ep2d / tp2d gather the other data ranks' tokens and receive
+    their (dp - 1) shares of the ff partial sums in the reduce-scatter
+    (B / dp rows each)."""
+    m, d = cfg.moe, cfg.d_model
+    local = 3 * m.n_experts * d * m.d_ff_expert * es / tp
+    rows = (batch // dp) * T * d * es
+    acts = 2 * (dp - 1) * rows
+    return {"ep": local * (dp - 1) / dp, "tp": local * (dp - 1) / dp,
+            "ep2d": acts, "tp2d": acts}
+
+
+def _moe_sharded(p, cfg):
+    """The sharded MoE (`moe_ffn_sharded`) through InferenceEngine(
+    parallel=) with its graphs on a one-rank NCCL mesh (1, 1), on the
+    phase's own tree (one-rank shards are views of it), in moe_mode
+    ep2d, on the sharded phase's schedule (B = 4, a ragged prefill
+    at T_SERVE, 16 decode steps, a backfill): (i) at capacity_factor =
+    n_experts (nothing drops) within LOGIT_TOL of max|logit| of the
+    unsharded engine (the dense path); (ii) at the config's capacity
+    (pairs drop: C = 1 an expert at a decode step) graphs bit for bit
+    its eager run, the dropped pairs logged a step. Returns the kernels'
+    launches in the graph engines' runs (replays included)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.sharding import make_parallel
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_config
+    for arch in (MOE_ARCH, "grok_1_314b"):
+        full = get_config(arch)
+        log(f"moe sharded bytes into each rank a layer (computed, not "
+            f"measured), {arch} fp32 on mesh (2, 2): decode B={B}: "
+            f"{json.dumps(moe_mode_bytes(full, 2, 2, B, 1))}; prefill "
+            f"B={B} T={T_PREFILL}: "
+            f"{json.dumps(moe_mode_bytes(full, 2, 2, B, T_PREFILL))}")
+    counts = {name: 0 for name in ops.KERNELS}
+    feed = _sharded_feed(np.random.default_rng(22), cfg.vocab)
+    kw = dict(batch_size=B, max_seq=S_CACHE, device="cuda")
+    ample = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    def decode_ms(eng):
+        """Host wall ms of a graph decode step (the engine's own clock,
+        a device synchronise at each end)."""
+        return eng.stats.decode_time_s / eng.stats.decode_calls * 1e3
+    with torch.no_grad():
+        eng = InferenceEngine(cfg, p, **kw)
+        want = _sharded_engine_steps(eng, feed)
+    step_ms, nccl = {"unsharded": decode_ms(eng)}, {}
+    del eng
+    torch.cuda.empty_cache()
+    with _nccl_one_rank() as mesh:
+        for mode in MOE_SHARD_MODES:
+            par = make_parallel(mesh, "serve", moe_mode=mode)
+            shards = _one_rank_shards(p, cfg, par, f"moe sharded {mode}")
+            got = {}
+            for label, c in (("ample", ample), ("config", cfg)):
+                ops.reset_launch_counts()
+                with torch.no_grad(), _counting_all_reduce() as calls:
+                    eng = InferenceEngine(c, shards, parallel=par, **kw)
+                    got[label] = _sharded_engine_steps(eng, feed)
+                require(calls, f"moe sharded {mode} {label}: no nccl "
+                        f"all_reduce")
+                nccl[f"{mode} {label}"] = len(calls)
+                for name, n in ops.launch_counts().items():
+                    counts[name] += n
+                require(eng.stats.graph_replays > 0,
+                        f"moe sharded {mode} {label}: no replay")
+                step_ms[f"{mode} capacity {c.moe.capacity_factor}"] = \
+                    decode_ms(eng)
+                del eng
+                torch.cuda.empty_cache()
+            marks = []
+            with torch.no_grad(), _counting_drops() as drops:
+                eager = _sharded_engine_steps(
+                    InferenceEngine(cfg, shards, parallel=par, graphs=False,
+                                    **kw),
+                    feed, lambda: marks.append(len(drops)))
+            torch.cuda.empty_cache()
+            per_step = [sum(drops[a:b])
+                        for a, b in zip([0] + marks[:-1], marks)]
+            rel = _rel(got["ample"], want)
+            unequal = [i for i, (g, e) in enumerate(zip(got["config"],
+                                                         eager))
+                       if not np.array_equal(g, e)]
+            log(f"moe sharded {mode}: nccl mesh (1, 1), {cfg.n_layers} "
+                f"layers, B={B} prefill T={T_SERVE} lengths={LENS_FIRST}, "
+                f"{2 * SHARD_STEPS} decode steps, a backfill: (i) capacity "
+                f"{ample.moe.capacity_factor} graphs vs unsharded engine max "
+                f"|dlogit|/max|logit| = {rel:.3e} (limit {LOGIT_TOL}); (ii) "
+                f"capacity {cfg.moe.capacity_factor} graphs vs eager "
+                f"bit-identical at {len(eager) - len(unequal)} of "
+                f"{len(eager)} (unequal: {unequal}); dropped (token, "
+                f"choice) pairs a step, all layers: {per_step}")
+            require(rel <= LOGIT_TOL, f"moe sharded {mode}: logits off")
+            require(not unequal, f"moe sharded {mode}: graphs != eager")
+            require(sum(per_step) > 0,
+                    f"moe sharded {mode}: nothing dropped at capacity "
+                    f"{cfg.moe.capacity_factor}")
+            del shards
+    log(f"moe sharded launches: {json.dumps(counts)}; nccl all_reduce "
+        f"calls from the host (eager and captures): {json.dumps(nccl)}; "
+        f"graph decode step "
+        f"ms (host wall, mean of {2 * SHARD_STEPS}): {json.dumps(step_ms)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("flash_attention", "decode_attention"):
+        require(counts[name] > 0, f"moe sharded: {name} launched")
     return counts
 
 
@@ -3424,6 +3656,14 @@ SHARD_B = 2                 # batch of the two-rank gloo run
 SHARD_TIMEOUT = 300         # seconds the two gloo ranks may take
 FD_S, FD_POS, FD_HEADS = 4096, 4096 + 700, (32, 4, 128)   # yi-9b's heads
 FD_TOL = TOL[torch.float32]
+# (b)'s moe_ffn_sharded cases on mesh (2, 1): (arch, moe_mode), reduced
+# configs at capacity_factor = n_experts, B x T tokens; the FFN within
+# SHARD_FFN_TOL of max|dense|, the aux loss within SHARD_AUX_TOL (the
+# CPU tests' tolerances).
+SHARD_MOE_CASES = (("qwen3_moe_235b", "ep"), ("qwen3_moe_235b", "ep2d"),
+                   ("grok_1_314b", "tp"), ("grok_1_314b", "tp2d"))
+SHARD_MOE_T = 8
+SHARD_FFN_TOL, SHARD_AUX_TOL = 2e-5, 1e-6
 
 
 def _free_port():
@@ -3444,19 +3684,114 @@ def _sharded_feed(rng, V):
             rng.integers(0, V, (2 * SHARD_STEPS, B, 1)).astype(np.int32))
 
 
-def _sharded_engine_steps(eng, feed):
+def _sharded_engine_steps(eng, feed, each=None):
+    """The feed through the engine: the logits of every step. each: a
+    callable run after every step."""
     prompts, row, toks = feed
+    each = each or (lambda: None)
     out = [eng.run_prefill(prompts, lengths=LENS_FIRST)]
+    each()
     for i in range(2 * SHARD_STEPS):
         if i == SHARD_STEPS:
             out.append(eng.prefill_row(row, 1, length=BACKFILL_LEN))
+            each()
         out.append(eng.run_decode(toks[i]))
+        each()
     return out
 
 
 def _rel(got, want):
     return max(float(np.abs(g - w).max() / np.abs(w).max())
                for g, w in zip(got, want))
+
+
+@contextlib.contextmanager
+def _nccl_one_rank():
+    """A one-rank NCCL process group over localhost for the block, and
+    its mesh (1, 1) ("data", "model")."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _counting_all_reduce():
+    """While the block runs, the torch.distributed.all_reduce calls made
+    from the host (eager steps and graph captures; a replay makes
+    none), one entry each in the list it yields."""
+    import torch.distributed as dist
+    real, calls = dist.all_reduce, []
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+    dist.all_reduce = counted
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = real
+
+
+def _nccl_capture_check(par):
+    """all_reduce, and the NCCL calls that all_gather and reduce_scatter
+    make over an axis of more than one rank (`_all_gather_into`,
+    `_reduce_scatter_into`), captured together in one CUDA graph on the
+    one-rank NCCL group, replayed on 3 new inputs: over one rank each
+    output is its input, bit for bit."""
+    from repro_torch.sharding import (_all_gather_into, _reduce_scatter_into,
+                                      all_reduce)
+    group = par.mesh.get_group("model")
+    x = torch.zeros((B, 4096), device="cuda")
+    ar, ag, rs = (torch.zeros_like(x), torch.zeros((1,) + x.shape,
+                  device="cuda"), torch.zeros_like(x))
+
+    def body():
+        ar.copy_(x)
+        all_reduce(ar, par, ("data", "model"))
+        _all_gather_into(ag, x, group)
+        _reduce_scatter_into(rs, x, group)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()                  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    same = []
+    for _ in range(3):
+        x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append([torch.equal(ar, x), torch.equal(ag[0], x),
+                     torch.equal(rs, x)])
+    log(f"sharded (a) nccl capture: all_reduce, all_gather's and "
+        f"reduce_scatter's nccl calls in one CUDA graph, 3 replays on new "
+        f"inputs, [all_reduce, all_gather, reduce_scatter] equal to the "
+        f"input: {same}")
+    require(all(all(r) for r in same), "sharded (a): nccl under capture")
+    del graph
+
+
+def _one_rank_shards(params, cfg, par, label):
+    """shard_params on the one-rank mesh: every shard is its whole leaf,
+    a view of the same storage (no copy of a 58 GB tree); logged and
+    required."""
+    from repro_torch.models.params import shard_params, tree_leaves
+    shards = shard_params(params, cfg, par)
+    pairs = list(zip(tree_leaves(params), tree_leaves(shards), strict=True))
+    same = sum(a.data_ptr() == b.data_ptr() and a.shape == b.shape
+               for a, b in pairs)
+    log(f"{label}: shard_params on mesh (1, 1): {same} of {len(pairs)} "
+        f"leaves share the unsharded leaf's storage (data_ptr equal)")
+    require(same == len(pairs), f"{label}: a one-rank shard was copied")
+    return shards
 
 
 def _one_rank_nccl(p32, p8):
@@ -3466,19 +3801,15 @@ def _one_rank_nccl(p32, p8):
     against the same sharded engine run eagerly (bit for bit). Returns
     the kernels' launches in the graph engines' runs (replays
     included)."""
-    import torch.distributed as dist
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.params import shard_params
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.sharding import make_parallel
     cfg = _full_width("cuda")
     counts = {name: 0 for name in ops.KERNELS}
     counts["int8_matmul_prefill"] = 0
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                            f"{_free_port()}", rank=0, world_size=1)
-    try:
-        par = make_parallel(make_mesh((1, 1), ("data", "model")), "serve")
+    with _nccl_one_rank() as mesh:
+        par = make_parallel(mesh, "serve")
         for label, params in (("fp32", p32), ("int8", p8)):
             feed = _sharded_feed(np.random.default_rng(21), cfg.vocab)
             shards = shard_params(params, cfg, par)
@@ -3489,8 +3820,9 @@ def _one_rank_nccl(p32, p8):
                 eager = _sharded_engine_steps(InferenceEngine(
                     cfg, shards, parallel=par, graphs=False, **kw), feed)
                 ops.reset_launch_counts()
-                eng = InferenceEngine(cfg, shards, parallel=par, **kw)
-                got = _sharded_engine_steps(eng, feed)
+                with _counting_all_reduce() as calls:
+                    eng = InferenceEngine(cfg, shards, parallel=par, **kw)
+                    got = _sharded_engine_steps(eng, feed)
                 for name, n in ops.launch_counts().items():
                     counts[name] += n
                 counts["int8_matmul_prefill"] += ops.int8_prefill_launches()
@@ -3505,14 +3837,16 @@ def _one_rank_nccl(p32, p8):
                 f"|dlogit|/max|logit| = {rel:.3e} (limit {LOGIT_TOL}); "
                 f"graphs vs eager bit-identical at "
                 f"{len(got) - len(unequal)} (unequal: {unequal}); "
-                f"captures={st.graph_captures} replays={st.graph_replays}")
+                f"captures={st.graph_captures} replays={st.graph_replays}; "
+                f"nccl all_reduce calls from the host (eager and captures) "
+                f"{len(calls)}")
             require(rel <= LOGIT_TOL, f"sharded (a) {label}: logits off")
+            require(calls, f"sharded (a) {label}: no nccl all_reduce")
             require(not unequal, f"sharded (a) {label}: graphs != eager")
             require(st.graph_replays > 0, f"sharded (a) {label}: no replay")
             del eng, shards
             torch.cuda.empty_cache()
-    finally:
-        dist.destroy_process_group()
+        _nccl_capture_check(par)
     log(f"sharded (a) launches: {json.dumps(counts)}")
     for name in ("flash_attention", "decode_attention", "int8_matmul"):
         require(counts[name] > 0, f"sharded (a): {name} launched")
@@ -3612,10 +3946,57 @@ def _sharded_rank(rank, world, port, out_dir):
             "empty_row_zero": bool((out[3] == 0).all()),
             "chunk_written": bool(torch.equal(lk, ck[:, mine])
                                   and torch.equal(lp, cpos[mine]))}
+        res["moe_ffn"] = _sharded_moe_ffn(make_mesh((world, 1),
+                                                    ("data", "model")))
     finally:
         dist.destroy_process_group()
     with open(Path(out_dir) / f"sharded_rank{rank}.json", "w") as f:
         json.dump(res, f)
+
+
+def _sharded_moe_ffn(mesh):
+    """(b) moe_ffn_sharded on this rank's expert shards and batch rows
+    over the two ranks' mesh (2, 1) (ep / tp gather the experts over
+    data, ep2d / tp2d gather x and reduce-scatter the output: gloo's
+    all_gather and reduce_scatter on CUDA tensors), its output gathered
+    over data, against moe_ffn_dense on the whole batch (capacity
+    n_experts: nothing drops); the aux loss against the dense loss over
+    the rows each rank routes (its own in ep / tp, the gathered batch in
+    ep2d / tp2d), averaged over the ranks."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.moe import (moe_ffn_dense, moe_ffn_sharded,
+                                        moe_weight_specs)
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding import all_gather, make_parallel, shard_leaf
+    out = {}
+    for arch, mode in SHARD_MOE_CASES:
+        base = reduced_config(arch)
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, capacity_factor=float(base.moe.n_experts)))
+        p = {k: v[0] for k, v in
+             init_params(cfg, seed=1, device="cuda")["blocks"][0].items()}
+        par = make_parallel(mesh, "serve", moe_mode=mode)
+        w_in, w_out = moe_weight_specs(mode, par.tp_axis, par.fsdp_axes)
+        spec = {"w_gate": w_in, "w_up": w_in, "w_down": w_out}
+        local = {k: shard_leaf(v, spec[k], par.sizes, par.coords())
+                 if k in spec else v for k, v in p.items()}
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn((2 * par.dp_size, SHARD_MOE_T, cfg.d_model),
+                        generator=gen, device="cuda")
+        Bl = x.shape[0] // par.dp_size
+        d = par.index(par.data_axes)
+        with torch.no_grad():
+            y, aux = moe_ffn_sharded(local, x[d * Bl:(d + 1) * Bl], cfg,
+                                     par)
+            y = all_gather(y, par, par.data_axes, 0)
+            want, want_aux = moe_ffn_dense(p, x, cfg)
+            if not mode.endswith("2d"):
+                want_aux = sum(moe_ffn_dense(p, x[i:i + Bl], cfg)[1]
+                               for i in range(0, x.shape[0], Bl)) / par.dp_size
+        out[f"{arch} {mode}"] = {
+            "rel": float((y - want).abs().max() / want.abs().max()),
+            "aux_abs_err": abs(float(aux) - float(want_aux))}
+    return out
 
 
 def _two_gloo_ranks():
@@ -3623,7 +4004,8 @@ def _two_gloo_ranks():
     device), mesh (1, 2): full-width stablelm-1.6b fp32 forward,
     prefill and decode against the unsharded result, and
     flash_decode_sharded on yi-9b's heads against the plain decode
-    attention; both ranks must pass."""
+    attention; then mesh (2, 1): moe_ffn_sharded in every moe_mode
+    against moe_ffn_dense; both ranks must pass."""
     import tempfile
     import torch.multiprocessing as mp
     out_dir = tempfile.mkdtemp(prefix="sharded_", dir=ROOT / "build")
@@ -3654,6 +4036,11 @@ def _two_gloo_ranks():
         require(fd["empty_row_zero"], f"sharded (b) rank {rank}: empty row")
         require(fd["chunk_written"],
                 f"sharded (b) rank {rank}: the owner's cache write")
+        for case, r in res["moe_ffn"].items():
+            require(r["rel"] <= SHARD_FFN_TOL
+                    and r["aux_abs_err"] <= SHARD_AUX_TOL,
+                    f"sharded (b) rank {rank}: moe_ffn_sharded {case} vs "
+                    f"dense")
     shutil.rmtree(out_dir)
 
 
@@ -4389,7 +4776,7 @@ def main(argv=None):
     ccounts = phase_cluster() if "cluster" in phases else None
     if "profile_cluster" in phases:
         phase_profile_cluster()
-    counts = rcounts = dcounts = shcounts = None
+    counts = rcounts = dcounts = shcounts = rshcounts = None
     # Profiles that the serve phases measured (the sim headline's zoo).
     measured = []
     if {"model", "serve", "profile", "sharded"} & set(phases):
@@ -4411,7 +4798,7 @@ def main(argv=None):
     if {"recurrent", "profile_recurrent"} & set(phases):
         rparams = _recurrent_params()
         if "recurrent" in phases:
-            phase_recurrent(rparams)
+            rshcounts = phase_recurrent(rparams)
             rcounts, profs = phase_serve_recurrent(rparams)
             measured += profs
         if "profile_recurrent" in phases:
@@ -4426,7 +4813,7 @@ def main(argv=None):
         phase_sim_headline(measured)
     if "profile_dense" in phases:
         phase_profile_dense()
-    mcounts = phase_moe() if "moe" in phases else None
+    mcounts, mshcounts = phase_moe() if "moe" in phases else (None, None)
     tcounts = phase_train() if "train" in phases else None
     if "profile_train" in phases:
         phase_profile_train()
@@ -4475,6 +4862,16 @@ def main(argv=None):
                 **({} if shcounts is None or name != "int8_matmul" else
                    {"prefill_launches_sharded":
                     shcounts["int8_matmul_prefill"]}),
+                # The sharded MoE's runs: qwen3-moe-235b fp32 (depth
+                # cut) through InferenceEngine(parallel=) on a one-rank
+                # nccl mesh in moe_mode ep2d, graph replays
+                # included (no int8 kernel).
+                launches_sharded_moe=None if mshcounts is None
+                else mshcounts[name],
+                # The sharded recurrent blocks' runs: recurrentgemma-2b
+                # fp32 and int8 and mamba2-2.7b fp32 the same way.
+                launches_sharded_recurrent=None if rshcounts is None
+                else rshcounts[name],
                 # The training path's run: none (it runs the plain
                 # attention; the kernels have no backward).
                 launches_train=None if tcounts is None else tcounts[name],

@@ -21,6 +21,7 @@ into theirs, so a captured step reads and writes fixed buffers.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -205,13 +206,14 @@ def _apply_block(kind: str, p, x, cfg: ModelConfig, positions, cache,
                 f"valid_from masking cannot be applied to recurrent blocks "
                 f"({kind}); feed unpadded sequences")
         block = rglru_block if kind == "rglru" else ssd_block
-        x, _ = block(p, x, cfg, cache)
+        x, _ = block(p, x, cfg, cache, parallel)
         return x, None
     x, _ = attn_block(p, x, cfg, kind, positions, cache, cache_pos,
                       valid_from, parallel)
     if kind != "moe":
         return x, None
-    out, aux = moe_block_ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    out, aux = moe_block_ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
+                             parallel)
     if cfg.sandwich_norm:
         out = rms_norm(out, p["post_ffn_norm"], cfg.norm_eps)
     if cfg.remat == "moe_save":
@@ -234,7 +236,8 @@ def _apply_group(cfg: ModelConfig, ps, x, positions, cs, cache_pos,
 
 def check_parallel(cfg: ModelConfig, parallel):
     """Raise for what the sharded path does not compute yet: the train
-    profile and its layout levers, and every block kind but attention."""
+    profile and its layout levers. The serve profile computes every
+    block kind (attention, MoE, RG-LRU, SSD)."""
     if parallel.profile != "serve" or parallel.seq_shard or \
             parallel.attn_pin:
         raise NotImplementedError(
@@ -242,16 +245,6 @@ def check_parallel(cfg: ModelConfig, parallel):
             f"attn_pin={parallel.attn_pin}: the sharded path runs the serve "
             f"profile only; the train profile (FSDP, seq_shard / seq_mode / "
             f"attn_pin) is ROADMAP queue 1 item 3.3")
-    for kind in set(cfg.pattern) | set(cfg.tail_kinds):
-        if kind == "moe":
-            raise NotImplementedError(
-                "moe blocks under parallel: the sharded MoE "
-                "(moe_ffn_sharded, ep / tp / ep2d / tp2d) is ROADMAP queue "
-                "1 item 3.1")
-        if kind in RECURRENT_KINDS:
-            raise NotImplementedError(
-                f"{kind} blocks under parallel: the sharded RG-LRU and SSD "
-                f"blocks are ROADMAP queue 1 item 3.2")
 
 
 def whole_embed_table(params, cfg: ModelConfig, parallel):
@@ -313,13 +306,16 @@ def forward(params, inputs, cfg: ModelConfig, *, parallel=None, cache=None,
     device that `decode_step` builds (default 0, as in the reference).
     valid_from: optional (B,) int32 per-row first attendable position
     (attention-only patterns; recurrent blocks raise).
-    parallel: a `sharding.ParallelConfig` (serve profile, attention-only
-    patterns; others raise): params are this rank's shards
+    parallel: a `sharding.ParallelConfig` (serve profile; the train
+    profile raises): params are this rank's shards
     (`params.shard_params`), cache this rank's (`init_cache(...,
     parallel=)`); inputs, positions and valid_from are the whole batch's
     on every rank, and each data rank takes its own rows where B divides
-    the data axes. Every rank returns the whole batch's logits
-    (all-gathered over the model and data axes).
+    the data axes; otherwise every rank computes every row, and the
+    blocks get a ParallelConfig whose `data_axes` is empty (the axes the
+    activations' batch is split over: the sharded MoE reads them).
+    Every rank returns the whole batch's logits (all-gathered over the
+    model and data axes).
     cfg.remat == "block": under autograd and without a cache, each scan
     group's blocks run under `torch.utils.checkpoint` (the reference's
     `jax.checkpoint` of its scan body): their activations are computed
@@ -331,16 +327,19 @@ def forward(params, inputs, cfg: ModelConfig, *, parallel=None, cache=None,
     either way, so it runs as it is.
     Returns (logits, {"aux_loss": 0-d fp32, "cache": cache}); aux_loss is
     the MoE blocks' load-balance losses summed (zero without MoE)."""
-    rows = None
+    rows = bpar = None
     if parallel is not None:
         check_parallel(cfg, parallel)
         B = inputs.shape[0]
+        bpar = parallel
         if parallel.data_ok(B):
             Bl = B // parallel.dp_size
             d = parallel.index(parallel.data_axes)
             rows = slice(d * Bl, (d + 1) * Bl)
             if valid_from is not None:
                 valid_from = valid_from[rows]
+        else:
+            bpar = dataclasses.replace(parallel, data_axes=())
     compute_dtype = dtype_of(cfg.compute_dtype)
     table = params["embed"]
     if parallel is not None and cfg.tie_embeddings:
@@ -376,17 +375,17 @@ def forward(params, inputs, cfg: ModelConfig, *, parallel=None, cache=None,
                                          for c in cache["blocks"]]
         if remat:
             x, aux = checkpoint(_apply_group, cfg, ps, x, positions, cs,
-                                cache_pos, valid_from, aux, parallel,
+                                cache_pos, valid_from, aux, bpar,
                                 use_reentrant=False,
                                 preserve_rng_state=False,
                                 context_fn=context_fn)
         else:
             x, aux = _apply_group(cfg, ps, x, positions, cs, cache_pos,
-                                  valid_from, aux, parallel)
+                                  valid_from, aux, bpar)
     for i, kind in enumerate(cfg.tail_kinds):
         c = None if cache is None else cache["tail"][i]
         x, a = _apply_block(kind, params["tail"][i], x, cfg, positions, c,
-                            cache_pos, valid_from, parallel)
+                            cache_pos, valid_from, bpar)
         if a is not None:
             aux = aux + a
 

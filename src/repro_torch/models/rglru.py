@@ -25,12 +25,17 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _proj, act_fn, mlp, rms_norm
+from repro_torch.sharding import all_gather
 
 
-def _gates(p, x, cfg: ModelConfig):
+def _gates(p, x, cfg: ModelConfig, x_in=None):
+    """The recurrence's (a, b) of x (B, T, W). x_in: the whole width of
+    x that the gate projections w_a and w_x read, where x is this rank's
+    width slice (their columns are its gates); None: x itself."""
     c = cfg.rglru.c
-    r = torch.sigmoid(_proj(x, p["w_a"]) + p["b_a"])
-    i = torch.sigmoid(_proj(x, p["w_x"]) + p["b_x"])
+    x_in = x if x_in is None else x_in
+    r = torch.sigmoid(_proj(x_in, p["w_a"]) + p["b_a"])
+    i = torch.sigmoid(_proj(x_in, p["w_x"]) + p["b_x"])
     log_a = -c * F.softplus(p["lam"]) * r.float()
     a = torch.exp(log_a)
     gated_x = i * x
@@ -54,10 +59,10 @@ def _doubling_scan(a, b):
     return b
 
 
-def rglru_scan(p, x, cfg: ModelConfig, h0=None):
+def rglru_scan(p, x, cfg: ModelConfig, h0=None, x_in=None):
     """x: (B,T,W). Returns (y, h_last): the linear recurrence over the
-    sequence from state h0 (zeros when None)."""
-    a, b = _gates(p, x, cfg)
+    sequence from state h0 (zeros when None). x_in: as in `_gates`."""
+    a, b = _gates(p, x, cfg, x_in)
     if h0 is not None:
         # Fold the incoming state into the first step: b_0 += a_0 * h0.
         b = torch.cat([(b[:, 0] + a[:, 0] * h0.float())[:, None], b[:, 1:]],
@@ -66,9 +71,10 @@ def rglru_scan(p, x, cfg: ModelConfig, h0=None):
     return h.to(x.dtype), h[:, -1]
 
 
-def rglru_step(p, x, cfg: ModelConfig, h):
-    """x: (B,1,W); h: (B,W) fp32 state. Returns (y, h_new)."""
-    a, b = _gates(p, x, cfg)
+def rglru_step(p, x, cfg: ModelConfig, h, x_in=None):
+    """x: (B,1,W); h: (B,W) fp32 state. Returns (y, h_new). x_in: as in
+    `_gates`."""
+    a, b = _gates(p, x, cfg, x_in)
     h_new = a[:, 0] * h + b[:, 0]
     return h_new[:, None].to(x.dtype), h_new
 
@@ -90,34 +96,41 @@ def causal_conv1d(w, x, state=None):
     return y, new_state
 
 
-def rglru_block(p, x, cfg: ModelConfig, cache=None):
+def rglru_block(p, x, cfg: ModelConfig, cache=None, parallel=None):
     """Full recurrentgemma residual block (mixer + MLP).
 
     cache: None (sequence mode) or {"h": (B,W) fp32, "conv": (B,K-1,W)},
     a layer's views into the model's cache. With a cache, T == 1 is a
     decode step from the cached state and T > 1 a prefill from a zero
     state (the reference ignores the incoming state there); both write
-    the new state into the cache tensors in place. Returns (x_out,
-    cache)."""
+    the new state into the cache tensors in place.
+    parallel: a `sharding.ParallelConfig` (serve profile): p and the
+    cache hold this rank's slice of the recurrence width (`rnn_width`
+    over the model axis): its columns of w_gate_branch, w_in, w_a, w_x,
+    its channels of the conv, the gate biases, Lambda, h, and its rows
+    of w_out. The gate projections read the whole width (their rows are
+    `rnn_in`, whole), so each rank gathers the conv output over the
+    model axis and gates its own slice; w_out and the MLP's w_down sum
+    over the model axis. Returns (x_out, cache)."""
     eps = cfg.norm_eps
     h = rms_norm(x, p["ln1"], eps)
     gate = act_fn("gelu")(_proj(h, p["w_gate_branch"]))
     u = _proj(h, p["w_in"])
-    if cache is None:
-        u, _ = causal_conv1d(p["conv_w"], u)
-        y, _ = rglru_scan(p, u, cfg)
-    else:
-        if x.shape[1] == 1:  # decode
-            u, conv_state = causal_conv1d(p["conv_w"], u, cache["conv"])
-            y, h_last = rglru_step(p, u, cfg, cache["h"])
-        else:  # prefill: run the sequence scan, emit the final state
-            u, conv_state = causal_conv1d(p["conv_w"], u)
-            y, h_last = rglru_scan(p, u, cfg)
+    decode = cache is not None and x.shape[1] == 1
+    u, conv_state = causal_conv1d(p["conv_w"], u,
+                                  cache["conv"] if decode else None)
+    u_in = None if parallel is None else all_gather(
+        u, parallel, parallel.tp_axis, u.ndim - 1)
+    if decode:
+        y, h_last = rglru_step(p, u, cfg, cache["h"], u_in)
+    else:  # a sequence, or a prefill: the scan from a zero state
+        y, h_last = rglru_scan(p, u, cfg, x_in=u_in)
+    if cache is not None:
         cache["h"].copy_(h_last)
         cache["conv"].copy_(conv_state)
-    out = _proj(y * gate, p["w_out"])
+    out = _proj(y * gate, p["w_out"], parallel)
     x = x + out
 
     h = rms_norm(x, p["ln2"], eps)
-    x = x + mlp(p["mlp"], h, cfg)
+    x = x + mlp(p["mlp"], h, cfg, parallel)
     return x, cache

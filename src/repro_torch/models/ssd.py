@@ -20,8 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _proj, rms_norm
+from repro_torch.models.layers import _proj, f32_up, rms_norm
 from repro_torch.models.rglru import causal_conv1d
+from repro_torch.sharding import all_reduce
 
 NEG_INF = -1e30
 
@@ -117,19 +118,55 @@ def ssd_step(x, dt, A, Bm, Cm, S):
     return y[:, None].to(x.dtype), S_new
 
 
-def ssd_block(p, x, cfg: ModelConfig, cache=None):
+def _gated_norm(y, z, w, eps: float, parallel=None):
+    """Mamba2's gated RMSNorm, rms_norm(y * silu(z), w) with a plain
+    (not zero-centered) scale, over the whole inner width. parallel: y,
+    z and w hold this rank's equal slice of it over the model axis:
+    each rank's mean square is averaged over the axis before the rsqrt
+    (the mean of equal-sized slices' means is the whole width's; a
+    per-slice norm would be wrong and still finite). On one rank the
+    average is the rank's own mean, so it gives rms_norm's bits."""
+    g = y * F.silu(z)
+    if parallel is None:
+        return rms_norm(g, w, eps, zero_centered=False)
+    gf = f32_up(g)
+    var = all_reduce(torch.mean(gf * gf, dim=-1, keepdim=True), parallel,
+                     parallel.tp_axis) / parallel.tp_size
+    return (gf * torch.rsqrt(var + eps) * f32_up(w)).to(g.dtype)
+
+
+def _local_groups(t, H: int, H_all: int, parallel):
+    """t (B, T, G, N) of every group, cut to the groups of this rank's
+    H of the H_all heads (head h reads group h // (H_all // G)): (B, T,
+    G', N) with H % G' == 0, each local head reading its group as
+    `_expand_groups` maps it. t itself where the rank holds every head
+    or G == 1. No published config has G > 1;
+    tests/test_torch_sharded_blocks.py holds the cut at G = 2 and 4."""
+    G = t.shape[2]
+    if G == 1 or H == H_all:
+        return t
+    lo = parallel.index((parallel.tp_axis,)) * H
+    idx = (lo + torch.arange(H, device=t.device)) // (H_all // G)
+    return t.index_select(2, idx)
+
+
+def ssd_block(p, x, cfg: ModelConfig, cache=None, parallel=None):
     """Full mamba2 residual block. cache: None or {"S": (B,H,N,P) fp32,
     "conv": {"x", "B", "C"}: (B,K-1,channels)}, a layer's views into the
     model's cache. With a cache, T == 1 is a decode step from the cached
     state and T > 1 a prefill whose scan starts from a zero state (the
     reference ignores the incoming S there, and seeds the convolutions
     with the cached inputs, zeros in a prefill's fresh cache); both
-    write the new state into the cache tensors in place. Returns
-    (x_out, cache)."""
+    write the new state into the cache tensors in place.
+    parallel: a `sharding.ParallelConfig` (serve profile): p and the
+    cache hold this rank's heads over the model axis (`ssd_heads`: w_dt,
+    A_log, dt_bias, D, S) and their slice of the inner width
+    (`ssd_inner`: w_z, w_x, conv_x, norm_w, w_out's rows, the x conv
+    state); w_B, w_C and their convs stay whole (`ssd_gn`). The gated
+    norm averages its mean square over the model axis and w_out sums
+    over it. Returns (x_out, cache)."""
     s = cfg.ssd
     eps = cfg.norm_eps
-    di = cfg.d_inner_ssd
-    H = cfg.ssd_heads
     P = s.head_dim
     G, N = s.n_groups, s.d_state
 
@@ -146,9 +183,11 @@ def ssd_block(p, x, cfg: ModelConfig, cache=None):
     xb, Bc, Cc = F.silu(xb), F.silu(Bc), F.silu(Cc)
 
     Bt, T = x.shape[0], x.shape[1]
+    di = xb.shape[-1]               # this rank's inner width
+    H = di // P                     # and heads
     xh = xb.reshape(Bt, T, H, P)
-    Bm = Bc.reshape(Bt, T, G, N)
-    Cm = Cc.reshape(Bt, T, G, N)
+    Bm = _local_groups(Bc.reshape(Bt, T, G, N), H, cfg.ssd_heads, parallel)
+    Cm = _local_groups(Cc.reshape(Bt, T, G, N), H, cfg.ssd_heads, parallel)
     dt = F.softplus(dt.float() + p["dt_bias"])  # (B,T,H)
     A = -torch.exp(p["A_log"].float())  # (H,)
 
@@ -164,7 +203,6 @@ def ssd_block(p, x, cfg: ModelConfig, cache=None):
 
     y = y + p["D"][None, None, :, None] * xh  # skip connection
     y = y.reshape(Bt, T, di)
-    # Gated RMSNorm (mamba2): norm(y * silu(z)).
-    y = rms_norm(y * F.silu(z), p["norm_w"], eps, zero_centered=False)
-    out = _proj(y, p["w_out"])
+    y = _gated_norm(y, z, p["norm_w"], eps, parallel)
+    out = _proj(y, p["w_out"], parallel)
     return x + out, cache

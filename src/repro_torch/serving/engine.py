@@ -24,9 +24,10 @@ card a step runs eagerly only to warm up. The backfill pair
 (`prefill_row`) runs eagerly into the same cache. On CPU tensors the
 same step functions run eagerly.
 
-With `parallel` (a `sharding.ParallelConfig`, serve profile,
-attention-only patterns) the engine serves one rank's shards
-(`models.params.shard_params`) over a sequence- or head-sharded cache:
+With `parallel` (a `sharding.ParallelConfig`, serve profile; every
+block kind) the engine serves one rank's shards
+(`models.params.shard_params`) over a sequence- or head-sharded cache
+(recurrent layers: their state's width or heads over the model axis):
 every rank makes the same host calls with the whole batch, each data
 rank computes its own rows, and `run_prefill` / `run_decode` /
 `prefill_row` return the all-gathered logits, so every rank returns

@@ -18,7 +18,8 @@ The reference lets GSPMD lay tensors out from these specs. The port
 does tensor parallelism by hand: `shard_leaf` cuts a full tensor into
 this rank's contiguous shard by its spec once, at load, and the model
 runs each rank's local shards with explicit collectives over the mesh's
-process groups (`all_reduce`, `all_gather`; see `models/layers.py`).
+process groups (`all_reduce`, `all_gather`, `reduce_scatter`; see
+`models/layers.py` and `models/moe.py`).
 A spec is a `Spec`, a tuple whose entries are what the reference's
 `PartitionSpec` holds: None, an axis name, or a tuple of axis names.
 """
@@ -326,14 +327,17 @@ def _all_gather_into(out: torch.Tensor, x: torch.Tensor, group):
     gather(out.view((-1,) + tuple(x.shape[1:])), x, group=group)
 
 
-def all_reduce(x: torch.Tensor, parallel: ParallelConfig, axis: str,
+def all_reduce(x: torch.Tensor, parallel: ParallelConfig, axes,
                op: str = "sum") -> torch.Tensor:
-    """x summed (op="sum") or maxed (op="max") over the mesh axis
-    `axis`, in place; returns x."""
+    """x summed (op="sum") or maxed (op="max") over the mesh axes `axes`
+    (a name or a tuple of names), in place; returns x. An axis of size
+    1 makes its call too (in place, it copies nothing): on the card's
+    one-rank NCCL mesh the engine's graphs capture it."""
     import torch.distributed as dist
-    dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
-                           "max": dist.ReduceOp.MAX}[op],
-                    group=parallel.mesh.get_group(axis))
+    for a in entry_axes(axes):
+        dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX}[op],
+                        group=parallel.mesh.get_group(a))
     return x
 
 
@@ -341,12 +345,50 @@ def all_gather(x: torch.Tensor, parallel: ParallelConfig, axes,
                dim: int) -> torch.Tensor:
     """Concatenate every rank's x along `dim` over the mesh axes `axes`
     (a name or a tuple of names, the first major): the inverse of
-    splitting dim over them."""
+    splitting dim over them. Over axes of size 1 it returns x itself
+    (the same storage: on a one-rank mesh a layer's expert weights are
+    not copied)."""
     axes = entry_axes(axes)
     for a in reversed(axes):      # minor axis first
         n = parallel.sizes[a]
+        if n == 1:
+            continue
         out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
                           device=x.device)
         _all_gather_into(out, x.contiguous(), parallel.mesh.get_group(a))
         x = torch.cat(out.unbind(0), dim=dim)
+    return x
+
+
+def _reduce_scatter_into(out: torch.Tensor, x: torch.Tensor, group):
+    """Sum x over `group` and fill `out` with this rank's block of its
+    leading dim (x's leading dim is n * out's, blocks in group-rank
+    order)."""
+    import torch.distributed as dist
+    # torch 2.13 renamed reduce_scatter_tensor to reduce_scatter_single.
+    scatter = getattr(dist, "reduce_scatter_single", None)
+    if scatter is None:
+        scatter = dist.reduce_scatter_tensor
+    scatter(out, x, group=group)
+
+
+def reduce_scatter(x: torch.Tensor, parallel: ParallelConfig, axes,
+                   dim: int = 0) -> torch.Tensor:
+    """x summed over the mesh axes `axes` (a name or a tuple of names),
+    of which each rank keeps its block of `dim`, split over the axes
+    with the first major: the reference's `psum_scatter(...,
+    tiled=True)` over each axis in turn. Axes of size 1 sum nothing and
+    split nothing (x itself)."""
+    for a in entry_axes(axes):    # major axis first
+        n = parallel.sizes[a]
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {x.shape[dim]} does not "
+                             f"split over {a!r} ({n} ranks)")
+        xt = x.movedim(dim, 0).contiguous()
+        out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        _reduce_scatter_into(out, xt, parallel.mesh.get_group(a))
+        x = out.movedim(0, dim)
     return x

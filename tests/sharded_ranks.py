@@ -1,6 +1,7 @@
-"""The rank side of tests/test_torch_sharded_exec.py: what each gloo
-rank runs, in a module that imports no jax (each spawned rank imports
-it by name, and the reference's outputs reach it as numpy arrays).
+"""The rank side of tests/test_torch_sharded_exec.py and
+tests/test_torch_sharded_blocks.py: what each gloo rank runs, in a
+module that imports no jax (each spawned rank imports it by name, and
+the reference's outputs reach it as numpy arrays).
 
 Every rank writes its results (each check's largest error relative to
 max|reference|, and counters) to rank<r>.json in the run's directory."""
@@ -23,6 +24,14 @@ SPAWN_TIMEOUT = 120
 
 
 def drive_engine(eng, prompts, row, toks):
+    """A left-padded group prefill, 3 decode steps, a backfill into slot
+    1, 3 more decode steps. row None (a recurrent pattern, which takes
+    no padding and no backfill): an unpadded prefill and the 6 decode
+    steps."""
+    if row is None:
+        out = {"prefill": eng.run_prefill(prompts)}
+        out["decode"] = np.stack([eng.run_decode(t) for t in toks])
+        return out
     out = {"prefill": eng.run_prefill(prompts, lengths=LENGTHS)}
     dec = [eng.run_decode(toks[i]) for i in range(3)]
     out["backfill"] = eng.prefill_row(row, 1, length=6)
@@ -60,7 +69,7 @@ def _rank_model_case(case, par, out):
     cfg = case["cfg"]
     params = shard_params(from_jax(case["params"], device="cpu"), cfg, par)
     x = torch.from_numpy(case["tokens"])
-    vf = torch.from_numpy(case["vf"])
+    vf = None if case["vf"] is None else torch.from_numpy(case["vf"])
     calls = [0]
     real = flash_decode.flash_decode_sharded
 
@@ -112,6 +121,38 @@ def _leaves(tree):
     return [tree]
 
 
+def _rank_ffn_case(case, par, out):
+    """`moe_ffn_sharded` alone on this rank's expert shards (cut by
+    `moe_weight_specs`) and its batch rows (the whole batch where it
+    does not divide the data axes), its output gathered over data,
+    against the case's oracle: the largest error relative to
+    max|oracle|, and the aux loss's absolute error."""
+    import dataclasses
+    from repro_torch.models.moe import moe_ffn_sharded, moe_weight_specs
+    from repro_torch.sharding import all_gather, shard_leaf
+    cfg = case["cfg"]
+    w_in, w_out = moe_weight_specs(case["moe_mode"], par.tp_axis,
+                                   par.fsdp_axes)
+    spec = {"w_gate": w_in, "w_up": w_in, "w_down": w_out}
+    p = {k: shard_leaf(torch.from_numpy(v), spec[k], par.sizes,
+                       par.coords()) if k in spec else torch.from_numpy(v)
+         for k, v in case["params"].items()}
+    x = torch.from_numpy(case["x"])
+    B = x.shape[0]
+    if par.data_ok(B):
+        Bl = B // par.dp_size
+        d = par.index(par.data_axes)
+        x = x[d * Bl:(d + 1) * Bl]
+    else:
+        par = dataclasses.replace(par, data_axes=())
+    with torch.no_grad():
+        y, aux = moe_ffn_sharded(p, x, cfg, par)
+        if par.data_axes:
+            y = all_gather(y, par, par.data_axes, 0)
+    out[case["name"]] = {"out": _err(y, case["want"]),
+                         "aux": abs(float(aux) - case["aux"])}
+
+
 def _rank_engine_case(case, par, out):
     from repro_torch.models.params import shard_params
     cfg = case["cfg"]
@@ -140,10 +181,19 @@ def _rank_main(rank, world, init_file, out_dir, shape):
             out["make_mesh_raises"] = False
         except ValueError:
             out["make_mesh_raises"] = True
-        par = make_parallel(make_mesh(shape, ("data", "model")), "serve")
+        # A case may name another mesh over the same ranks: (pod, data,
+        # model) of the same world.
+        meshes = {shape: make_mesh(shape, ("data", "model"))}
         for case in cases:
+            cs = tuple(case.get("mesh", shape))
+            if cs not in meshes:
+                meshes[cs] = make_mesh(cs, ("pod", "data", "model"))
+            par = make_parallel(meshes[cs], "serve",
+                                moe_mode=case.get("moe_mode", "auto"))
             if "prompts" in case:
                 _rank_engine_case(case, par, out)
+            elif "x" in case:
+                _rank_ffn_case(case, par, out)
             else:
                 _rank_model_case(case, par, out)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:

@@ -1212,6 +1212,63 @@ def test_sharded_engine_one_rank_nccl_matches_unsharded(cuda, quant):
         np.testing.assert_array_equal(g, e)
 
 
+def test_sharded_moe_engine_one_rank_nccl_graphs_match_eager(cuda):
+    """The sharded MoE (moe_mode ep2d) through InferenceEngine(parallel=)
+    on a one-rank NCCL mesh at capacity_factor 1.25, where pairs drop:
+    the graphs give the eager run's bits at every step (the combine
+    gathers each token's rows and sums them in choice order: no
+    atomics)."""
+    import dataclasses
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.params import shard_params
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.sharding import make_parallel
+    base = reduced_config("qwen3_moe_235b")
+    cfg = dataclasses.replace(base, attn_impl="cuda", moe=dataclasses.replace(
+        base.moe, capacity_factor=1.25))
+    params = init_params(cfg, 0, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab, (4, 12)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab, (6, 4, 1)).astype(np.int32)
+    kw = dict(batch_size=4, max_seq=32, device="cuda")
+    _one_rank_group("nccl")
+    try:
+        par = make_parallel(make_mesh((1, 1), ("data", "model")), "serve",
+                            moe_mode="ep2d")
+        shards = shard_params(params, cfg, par)
+        eng = InferenceEngine(cfg, shards, parallel=par, **kw)
+        got = _sharded_engine_run(eng, prompts, toks)
+        eager = _sharded_engine_run(InferenceEngine(
+            cfg, shards, parallel=par, graphs=False, **kw), prompts, toks)
+        assert eng.stats.graph_replays > 0
+    finally:
+        dist.destroy_process_group()
+    for g, e in zip(got, eager, strict=True):
+        np.testing.assert_array_equal(g, e)
+
+
+def test_all_gather_one_rank_returns_its_input(cuda):
+    """On a one-rank NCCL mesh all_gather over an axis of size 1 returns
+    the same CUDA tensor (no copy of a layer's weights); all_reduce's
+    NCCL call works in place on it."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import all_gather, all_reduce, make_parallel
+    _one_rank_group("nccl")
+    try:
+        par = make_parallel(make_mesh((1, 1), ("data", "model")), "serve")
+        x = torch.randn((8, 16, 4), generator=cuda, device="cuda")
+        assert all_gather(x, par, ("data",), 1) is x
+        assert all_gather(x, par, "model", 0).data_ptr() == x.data_ptr()
+        assert all_reduce(x, par, "model") is x
+    finally:
+        dist.destroy_process_group()
+
+
 def test_sharded_engine_refuses_graphs_on_gloo(cuda):
     """gloo collectives cannot be captured: graphs with a gloo mesh on
     the card raise; graphs=False runs."""

@@ -146,14 +146,31 @@ def test_moe_ffn_dense_matches_reference(arch):
         _close(ta, ja)
 
 
+class _OneRankMesh:
+    """What the sharded MoE reads of a mesh (names, shape, this rank's
+    coordinates): one rank, and no process group (the int8 check below
+    raises before any collective)."""
+    mesh_dim_names = ("data", "model")
+    shape = (1, 1)
+
+    def get_local_rank(self, axis):
+        return 0
+
+
 def test_moe_block_ffn_sharded_path_raises():
+    """moe_block_ffn takes the dense path without a mesh and the sharded
+    one under a mesh (tests/test_torch_sharded_blocks.py), which, like
+    the dense one, raises for int8 experts before any collective."""
+    from repro_torch.sharding import make_parallel
     jcfg, tcfg = _cfgs("qwen3_moe_235b")
     _, tp = _weights(jcfg)
     x = torch.zeros((1, 2, tcfg.d_model))
     out, _ = TM.moe_block_ffn(_block(tp), x, tcfg)
     assert out.shape == x.shape
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        TM.moe_block_ffn(_block(tp), x, tcfg, parallel=object())
+    par = make_parallel(_OneRankMesh(), "serve", moe_mode="ep")
+    with pytest.raises(TypeError, match="reference does not compute int8"):
+        TM.moe_block_ffn(tree_map(lambda t: t[0], quantize_exec_tree(tp)[
+            "blocks"][0]), x, tcfg, parallel=par)
 
 
 @pytest.mark.parametrize("impl", ["naive", "cuda"])

@@ -248,15 +248,16 @@ class _FakeMesh:
     shape = (2, 2)
 
 
-@pytest.mark.parametrize("arch, what", [
-    ("qwen3_moe_235b", "3.1"), ("recurrentgemma_2b", "3.2"),
-    ("mamba2_2_7b", "3.2")])
-def test_unsupported_blocks_raise_under_parallel(arch, what):
-    """MoE, RG-LRU and SSD blocks under parallel raise (before any
-    collective), from forward, prefill and the engine."""
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b", "recurrentgemma_2b",
+                                  "mamba2_2_7b"])
+def test_unsupported_blocks_raise_under_parallel(arch):
+    """The MoE, RG-LRU and SSD blocks compute under the serve profile
+    (tests/test_torch_sharded_blocks.py); under the train profile they
+    raise (before any collective), from forward, prefill and the
+    engine."""
     cfg = reduced_config(arch)
     par = ParallelConfig(mesh=_FakeMesh(), data_axes=("data",),
-                         profile="serve")
+                         profile="train")
     params = init_params(cfg, 0, device="cpu")
     x = torch.zeros((B, 4), dtype=torch.int32)
     for call in (lambda: forward(params, x, cfg, parallel=par),
@@ -265,7 +266,7 @@ def test_unsupported_blocks_raise_under_parallel(arch, what):
                                          max_seq=8, device="cpu",
                                          parallel=par)):
         with pytest.raises(NotImplementedError,
-                           match=f"queue 1 item {what}"):
+                           match="queue 1 item 3.3"):
             call()
 
 
