@@ -192,8 +192,21 @@ Phases (each prints its results, one line each):
            "auto" (chunked) attention and again with naive attention
            (loss, ms, peak memory of each); at 2 layers of full width,
            fp32 loss and grads against float64 and remat="block"
-           against "none"; the launcher's CLI for 2 steps. No kernel
-           launches here (the kernels have no backward)
+           against "none"; the launcher's CLI for 2 steps; then the
+           train profile on torch.distributed: (a) a one-rank NCCL mesh
+           (1, 1), full-width stablelm-1.6b under make_parallel(mesh,
+           "train") for 3 steps at B = 8, T = 64 against the unsharded
+           step's 3 (bit for bit where the arithmetic is the same, else
+           the CPU tests' tolerances; ms a step of both, and the
+           median of 9 more: the sharded path's fixed cost on one
+           rank), (b) two gloo ranks on the card, reduced gemma2-9b at
+           mesh (1, 2) with seq_shard and at (2, 1): grads, 3 AdamW
+           steps' losses, grad norms and params against the unsharded
+           port on the card, (c) the launcher's --mesh-shape 1,1
+           --steps 2 in a one-rank NCCL world from torchrun's
+           variables, then --reduced resumed from a checkpoint against
+           a straight run. No kernel launches here (the kernels have
+           no backward)
   profile  (only when asked for) where the time of a full-width decode
            step and of a full-width prefill (T = 64 and 512) goes,
            through the engine's graphs and through models.model called
@@ -247,8 +260,10 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -389,6 +404,17 @@ REMAT_TOL = 1e-6
 # (the embedding backward's) can move it by a fraction of lr (the CPU
 # tests measure 0.0146 lr between the port and the reference).
 RESUME_LOSS_RTOL, RESUME_TOL = 1e-6, 0.05 * TRAIN_LR
+# The train profile (phase train (a)-(c)): SHARD_TRAIN_STEPS steps of
+# each run; where the sharded arithmetic differs from the unsharded, the
+# CPU tests' tolerances (tests/test_torch_sharded_train.py): the loss
+# within SHARD_LOSS_RTOL relative, grad_norm within SHARD_GN_RTOL, each
+# grad leaf within SHARD_GRAD_TOL of its max|grad|, params within
+# SHARD_PARAM_LR of lr.
+SHARD_TRAIN_STEPS = 3
+SHARD_TIMED_STEPS = 9    # (a)'s steps after the compared ones, timed
+SHARD_LOSS_RTOL, SHARD_GN_RTOL, SHARD_GRAD_TOL = 2e-5, 1e-5, 1e-4
+SHARD_PARAM_LR = 0.05
+SHARD_TRAIN_LR = 1e-3       # (b)'s constant AdamW lr
 
 KERNEL_META = {
     "flash_attention": dict(
@@ -4265,6 +4291,261 @@ def _train_grads(cfg, args):
             "train grads: remat=block and none differ")
 
 
+def _train_runs(step_fn, state, batches):
+    """The batches through step_fn: the final state, each step's (loss,
+    grad_norm) and ms (CUDA events)."""
+    metrics, ms = [], []
+    for b in batches:
+        e0, e1 = _events()
+        e0.record()
+        state, m = step_fn(state, b)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return state, metrics, ms
+
+
+def _train_sharded_one_rank(cfg, args):
+    """(a) The train profile on a one-rank NCCL mesh (1, 1): full-width
+    stablelm-1.6b, the launcher's optimizer, SHARD_TRAIN_STEPS steps at
+    B = 8, T = 64 under make_parallel(mesh, "train") (seq_shard on: a
+    no-op over one rank) against the unsharded step's on the same
+    batches. The unsharded run's losses, grad norms and params are kept
+    on the host and its state freed before the sharded one is built
+    (two full-width train states, 26 GB each, do not fit with the
+    steps' temporaries)."""
+    from repro_torch.data import DataIterator, MarkovLMTask
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.params import tree_map
+    from repro_torch.sharding import make_parallel
+    from repro_torch.training.step import init_train_state
+    it = DataIterator(MarkovLMTask(vocab=cfg.vocab), batch=args.batch,
+                      seq=args.seq)
+    batches = [_to_card(next(it)) for _ in range(SHARD_TRAIN_STEPS)]
+    timed = [_to_card(next(it)) for _ in range(SHARD_TIMED_STEPS)]
+    _, opt, step_fn = launcher.build(args)
+    state, want, want_ms = _train_runs(step_fn, init_train_state(
+        cfg, opt, seed=0), batches)
+    want_params = tree_map(lambda t: t.cpu(), state["params"])
+    want_med = statistics.median(_train_runs(step_fn, state, timed)[2])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _nccl_one_rank() as mesh:
+        par = make_parallel(mesh, "train")
+        _, _, sstep = launcher.build(args, par)
+        # Each leaf drawn whole and cut as it is drawn (the launcher's
+        # way): the unsharded draws, so the same state on one rank.
+        sstate, got, got_ms = _train_runs(sstep, init_train_state(
+            cfg, opt, seed=0, parallel=par), batches)
+        rel, diff, same = _leaf_worst(sstate["params"], want_params)
+        step = int(sstate["step"])
+        got_med = statistics.median(_train_runs(sstep, sstate, timed)[2])
+    del sstate, want_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_rel = max(abs(g[0] / w[0] - 1) for g, w in zip(got, want))
+    gn_rel = max(abs(g[1] / w[1] - 1) for g, w in zip(got, want))
+    exact = same and got == want
+    log(f"train sharded (a): nccl mesh (1, 1), {cfg.name} full width, "
+        f"make_parallel(mesh, 'train') seq_shard={par.seq_shard}, B="
+        f"{args.batch} T={args.seq}, {SHARD_TRAIN_STEPS} steps against the "
+        f"unsharded step's: losses {[g[0] for g in got]} vs "
+        f"{[w[0] for w in want]}, grad norms {[g[1] for g in got]} vs "
+        f"{[w[1] for w in want]}; bit for bit (losses, grad norms, "
+        f"params) {exact}" + ("" if exact else
+        f"; by the CPU tolerances: loss rel {loss_rel:.3e} (tol "
+        f"{SHARD_LOSS_RTOL}), grad_norm rel {gn_rel:.3e} (tol "
+        f"{SHARD_GN_RTOL}), params max|dp| {diff:.3e} (tol "
+        f"{SHARD_PARAM_LR * args.lr:.1e})") + f"; ms a step (CUDA events) "
+        f"sharded {[round(x, 4) for x in got_ms]}, unsharded "
+        f"{[round(x, 4) for x in want_ms]}; median of the "
+        f"{SHARD_TIMED_STEPS} steps after those, sharded {got_med:.4f} "
+        f"unsharded {want_med:.4f} ms, ratio {got_med / want_med:.4f} (the "
+        f"sharded path's fixed cost on one rank, not a tensor-parallel "
+        f"speed)")
+    require(step == SHARD_TRAIN_STEPS, f"train sharded (a): step {step}")
+    require(exact or (loss_rel <= SHARD_LOSS_RTOL and gn_rel <= SHARD_GN_RTOL
+                      and diff <= SHARD_PARAM_LR * args.lr),
+            "train sharded (a): the one-rank sharded steps differ")
+
+
+def _train_gloo_rank(rank, world, port, out_dir):
+    """(b) One of two gloo ranks on the one card: reduced gemma2-9b
+    (tied table, softcaps, local / global, sandwich norms) at mesh
+    (1, 2) with seq_shard and at (2, 1): the first batch's synced grads
+    gathered, SHARD_TRAIN_STEPS AdamW steps' losses, grad norms and
+    gathered params, against the unsharded port's on the card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import MarkovLMTask
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import tree_leaves_sorted
+    from repro_torch.sharding import (gather_tree, make_parallel, shard_tree,
+                                      tree_specs)
+    from repro_torch.training import optim as TO
+    from repro_torch.training.step import (init_train_state, make_grad_fn,
+                                           make_train_step,
+                                           train_state_logical_axes)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    res = {}
+    try:
+        cfg = reduced_config("gemma2_9b").with_runtime(param_dtype="float32")
+        opt = TO.mixed_precision(TO.adamw(TO.constant_schedule(
+            SHARD_TRAIN_LR)))
+        batches = [_to_card(MarkovLMTask(vocab=cfg.vocab).batch(
+            i, 8, 16)) for i in range(SHARD_TRAIN_STEPS)]
+        full = init_train_state(cfg, opt, seed=0, device="cuda")
+        _, want_g = make_grad_fn(cfg)(full["params"], batches[0])
+        want, want_m = full, []
+        step = make_train_step(cfg, opt)
+        for b in batches:
+            want, m = step(want, b)
+            want_m.append((float(m["loss"]), float(m["grad_norm"])))
+
+        def worst(got, ref, scale):
+            return max(float((g - r).abs().max()) / scale(r) for g, r in zip(
+                tree_leaves_sorted(got), tree_leaves_sorted(ref),
+                strict=True))
+        for shape, kw in (((1, world), {"seq_shard": True}),
+                          ((world, 1), {})):
+            par = make_parallel(make_mesh(shape, ("data", "model")),
+                                "train", **kw)
+            specs = tree_specs(train_state_logical_axes(cfg, opt), par, cfg)
+            state = shard_tree(full, specs, par)
+            _, g = make_grad_fn(cfg, parallel=par)(state["params"],
+                                                   batches[0])
+            out = {"seq_shard": par.seq_shard, "grad": worst(
+                gather_tree(g, specs["params"], par), want_g,
+                lambda r: max(float(r.abs().max()), 1e-30))}
+            sstep = make_train_step(cfg, opt, parallel=par)
+            got_m = []
+            for b in batches:
+                state, m = sstep(state, b)
+                got_m.append((float(m["loss"]), float(m["grad_norm"])))
+            out["loss"] = max(abs(a[0] / b[0] - 1)
+                              for a, b in zip(got_m, want_m))
+            out["grad_norm"] = max(abs(a[1] / b[1] - 1)
+                                   for a, b in zip(got_m, want_m))
+            out["param_lr"] = worst(gather_tree(
+                state["params"], specs["params"], par), want["params"],
+                lambda r: SHARD_TRAIN_LR)
+            out["step"] = int(state["step"])
+            res[str(shape)] = out
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out_dir) / f"train_rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def _train_two_gloo_ranks():
+    """(b) Two gloo ranks on the one card running `_train_gloo_rank`;
+    both must pass."""
+    import tempfile
+    import torch.multiprocessing as mp
+    out_dir = tempfile.mkdtemp(prefix="train_sharded_", dir=ROOT / "build")
+    world = 2
+    ctx = mp.start_processes(_train_gloo_rank,
+                             args=(world, _free_port(), out_dir),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARD_TIMEOUT
+    try:
+        while not ctx.join(timeout=1.0):
+            require(time.monotonic() < deadline,
+                    f"train sharded (b): ranks done within {SHARD_TIMEOUT} "
+                    f"s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    for rank in range(world):
+        with open(Path(out_dir) / f"train_rank{rank}.json") as f:
+            res = json.load(f)
+        log(f"train sharded (b) rank {rank}: two gloo ranks on one card, "
+            f"gemma2_9b reduced B=8 T=16 vs the unsharded port on the card "
+            f"(tols: loss {SHARD_LOSS_RTOL}, grad_norm {SHARD_GN_RTOL}, "
+            f"grads {SHARD_GRAD_TOL}, params {SHARD_PARAM_LR} lr): "
+            f"{json.dumps(res)}")
+        for mesh, r in res.items():
+            require(r["step"] == SHARD_TRAIN_STEPS
+                    and r["loss"] <= SHARD_LOSS_RTOL
+                    and r["grad_norm"] <= SHARD_GN_RTOL
+                    and r["grad"] <= SHARD_GRAD_TOL
+                    and r["param_lr"] <= SHARD_PARAM_LR,
+                    f"train sharded (b) rank {rank} mesh {mesh}")
+    shutil.rmtree(out_dir)
+
+
+def _train_launcher_one_rank():
+    """(c) The launcher's --mesh-shape 1,1 --steps 2 in a one-rank NCCL
+    world it builds from torchrun's env:// variables (set here, and put
+    back after); then --reduced --steps 4, saved at 2 and 4, resumed
+    from 2 against that straight run, its checkpoint restored in the
+    unsharded port."""
+    import tempfile
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.params import tree_leaves_sorted
+    from repro_torch.training.checkpoint import restore_checkpoint
+    from repro_torch.training.step import abstract_train_state
+
+    def run(argv):
+        os.environ["MASTER_PORT"] = str(_free_port())   # a fresh world
+        return launcher.main(argv)
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    ck = tempfile.mkdtemp(prefix="train_mesh_ckpt_", dir=ROOT / "build")
+    small = ["--reduced", "--mesh-shape", "1,1", "--steps", "4",
+             "--save-interval", "2"]
+    try:
+        state = run(["--mesh-shape", "1,1", "--steps", "2"])
+        step = int(state["step"])
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs = time.perf_counter() - t0
+        # Saves at 2 and 4 (gathered to the host); with step 4's
+        # removed, the same command resumes at 2 (each leaf cut as it is
+        # read) and must end on the straight run's state.
+        straight = run(small + ["--ckpt", ck])
+        shutil.rmtree(Path(ck) / "step_00000004")
+        resumed = run(small + ["--ckpt", ck])
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    args = launcher.parse_args(small)
+    cfg, opt, _ = launcher.build(args)
+    saved, manifest = restore_checkpoint(ck, abstract_train_state(cfg, opt),
+                                         device="cuda")
+    shutil.rmtree(ck, ignore_errors=True)
+    leaves = [tree_leaves_sorted(t) for t in (resumed, straight, saved)]
+    same_straight = all(torch.equal(a, b)
+                        for a, b in zip(leaves[0], leaves[1], strict=True))
+    same_saved = all(torch.equal(a, b)
+                     for a, b in zip(leaves[0], leaves[2], strict=True))
+    log(f"train sharded (c): python -m repro_torch.launch.train "
+        f"--mesh-shape 1,1 --steps 2 under torchrun's variables (nccl, one "
+        f"rank): step {step}, {secs:.1f} s; --reduced --steps 4 resumed "
+        f"from 2 to {int(resumed['step'])}: bit for bit the straight run "
+        f"{same_straight}, its step-{manifest['step']} checkpoint restored "
+        f"unsharded bit for bit {same_saved}")
+    require(step == 2, f"train sharded (c): step {step}")
+    require(int(resumed["step"]) == 4 and manifest["step"] == 4
+            and same_straight and same_saved,
+            "train sharded (c): the resumed run differs")
+
+
 def phase_train():
     """The training path at full width on the card (see the module
     docstring). No kernel runs here: training takes the plain attention,
@@ -4290,6 +4571,11 @@ def phase_train():
         f"train --steps 2) {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _train_sharded_one_rank(cfg, args)
+    _train_two_gloo_ranks()
+    _train_launcher_one_rank()
+    log(f"train sharded (a)-(c): {time.perf_counter() - t0:.1f} s")
     counts = ops.launch_counts()
     require(not any(counts.values()),
             f"train: the training path launched kernels {counts}")

@@ -1,5 +1,5 @@
-"""Training launcher, on one device: the card by default, the CPU with
-``--device cpu``.
+"""Training launcher: the card by default, the CPU with ``--device
+cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
         --reduced --steps 100 --ckpt /tmp/ckpt --device cpu
@@ -7,23 +7,45 @@
 Real optimizer steps (AdamW or Adafactor under `mixed_precision`, a
 cosine schedule), Markov or byte data, a checkpoint every
 ``--save-interval`` steps and resume from the latest committed one.
+
+``--mesh-shape`` trains sharded (the train profile, attention-only
+models) on the ranks of a torch.distributed world: the launcher's own
+process group where one is initialized, else one built from torchrun's
+``env://`` variables (nccl on the card, each rank on its LOCAL_RANK's
+device; gloo with ``--device cpu``), e.g. on four CPU ranks:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --reduced --device cpu --mesh-shape 2,2 --batch 4 --ckpt /tmp/ck
+
+The mesh is ("data", "model") or ("pod", "data", "model"), the parallel
+config `make_parallel(mesh, "train", seq_shard=False)` as the
+reference's launcher builds it, and each rank keeps its shards of the
+state (`tree_specs(train_state_logical_axes(...))`). Every rank reads
+the whole batch. A checkpoint holds the whole state (gathered; rank 0
+writes it), in the one-device format, so either package restores it;
+on resume each rank cuts its shards from it.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data import ByteCorpus, DataIterator, MarkovLMTask
-from repro_torch.models.params import tree_map
+from repro_torch.sharding import gather_tree, make_parallel, tree_specs
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.optim import (adafactor, adamw, cosine_schedule,
                                         mixed_precision)
-from repro_torch.training.step import init_train_state, make_train_step
+from repro_torch.training.step import (abstract_train_state,
+                                       init_train_state, make_train_step,
+                                       train_state_logical_axes)
 from repro_torch.utils import resolve_device
+
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 
 def make_optimizer(name: str, lr: float, steps: int):
@@ -54,59 +76,125 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def build(args):
+def build(args, parallel=None):
     """(cfg, optimizer, train step) as the launcher trains them: the
     arch's config (reduced with --reduced) with fp32 params, the
-    optimizer of `make_optimizer`."""
-    if args.mesh_shape:
-        raise NotImplementedError(
-            "--mesh-shape: sharded training (the train profile: FSDP, "
-            "seq_shard) is not ported yet (ROADMAP queue 1 item 3.3); "
-            "this launcher trains on one device")
+    optimizer of `make_optimizer`, the step under `parallel` (None: one
+    device)."""
     cfg = (reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
     opt = make_optimizer(args.optimizer, args.lr, args.steps)
     cfg = cfg.with_runtime(param_dtype="float32")
-    return cfg, opt, make_train_step(cfg, opt)
+    return cfg, opt, make_train_step(cfg, opt, parallel=parallel)
+
+
+def _world(device):
+    """The process group --mesh-shape trains on: the initialized one,
+    else one from torchrun's env:// variables (nccl for the card, each
+    rank on its LOCAL_RANK's device; gloo for the CPU). Returns (device,
+    whether this call initialized it)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return device, False
+    missing = [v for v in TORCHRUN_VARS if v not in os.environ]
+    if missing:
+        raise RuntimeError(
+            f"--mesh-shape needs a torch.distributed world: run under "
+            f"torchrun (its env:// variables {', '.join(missing)} are not "
+            f"set) or initialize a process group first")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method="env://")
+    return device, True
+
+
+def _mesh_parallel(mesh_shape: str):
+    """`make_parallel(mesh, "train", seq_shard=False)` over a mesh of
+    `mesh_shape` ("2,4": ("data", "model"); "2,2,2": ("pod", "data",
+    "model")) on the initialized process group."""
+    from repro_torch.launch.mesh import make_mesh
+    shape = tuple(int(x) for x in mesh_shape.split(","))
+    axes = ("data", "model") if len(shape) == 2 else (
+        "pod", "data", "model")
+    return make_parallel(make_mesh(shape, axes), "train", seq_shard=False)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    cfg, opt, step_fn = build(args)
     device = resolve_device(args.device)
-    state = init_train_state(cfg, opt, seed=0, device=device)
+    if not args.mesh_shape:
+        return _train(args, device, None)
+    import torch.distributed as dist
+    device, owned = _world(device)
+    try:
+        return _train(args, device, _mesh_parallel(args.mesh_shape))
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _train(args, device, parallel):
+    """The launcher's loop on one device (parallel None) or on this
+    rank's shards. Returns the final state (this rank's shards)."""
+    cfg, opt, step_fn = build(args, parallel)
+    lead = True
+    specs = None
+    if parallel is not None:
+        import torch.distributed as dist
+        lead = dist.get_rank() == 0
+        specs = tree_specs(train_state_logical_axes(cfg, opt), parallel,
+                           cfg)
     mgr = CheckpointManager(args.ckpt, save_interval=args.save_interval) \
         if args.ckpt else None
     start = 0
+    # Under a mesh, each rank builds or reads only its shards: the whole
+    # state is cut one leaf at a time, as it is drawn or read.
     if mgr and mgr.latest_step() is not None:
-        # Restore into a "meta" copy of the state's structure, so the
-        # fresh state is freed before the checkpoint's is loaded.
-        target = tree_map(lambda t: t.to("meta"), state)
-        del state
-        state, manifest = mgr.restore_latest(target, device=device)
+        # Restore into a "meta" copy of the state's structure, so no
+        # fresh state is built first.
+        state, manifest = mgr.restore_latest(
+            abstract_train_state(cfg, opt), device=device, specs=specs,
+            parallel=parallel)
         start = manifest["step"]
-        print(f"resumed from step {start}")
+        if lead:
+            print(f"resumed from step {start}")
+    else:
+        state = init_train_state(cfg, opt, seed=0, device=device,
+                                 parallel=parallel)
 
     source = (MarkovLMTask(vocab=cfg.vocab) if args.data == "markov"
               else ByteCorpus("src"))
     it = DataIterator(source, batch=args.batch, seq=args.seq, step=start)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+    where = "" if parallel is None else (
+        f", mesh {args.mesh_shape} over {parallel.num_devices} ranks")
     t0 = time.perf_counter()
     for d in it:
         state, m = step_fn(state, {
             "inputs": torch.as_tensor(d["inputs"], device=device),
             "labels": torch.as_tensor(d["labels"], device=device)})
         s = int(state["step"])
-        if mgr:
-            mgr.maybe_save(state, s)
-        if s % 20 == 0 or s >= args.steps:
+        if mgr and s % mgr.save_interval == 0:
+            # Rank 0 writes the whole state, gathered a leaf at a time
+            # to the host.
+            whole = state if parallel is None else gather_tree(
+                state, specs, parallel, device="cpu", keep=lead)
+            if lead:
+                mgr.save(whole, s)
+            del whole
+            if parallel is not None:
+                dist.barrier()
+        if lead and (s % 20 == 0 or s >= args.steps):
             dt = (time.perf_counter() - t0) * 1000 / max(s - start, 1)
             print(f"step {s:5d} loss {float(m['loss']):.4f} "
-                  f"({dt:.0f} ms/step, device={name})", flush=True)
+                  f"({dt:.0f} ms/step, device={name}{where})", flush=True)
         if s >= args.steps:
             break
-    print("done")
+    if lead:
+        print("done")
     return state
 
 

@@ -24,7 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding import all_gather, all_reduce
+from repro_torch.sharding import (all_gather, all_reduce, copy_to_split,
+                                  gather_to_split, scatter_to_split,
+                                  sum_to_shared)
 
 NEG_INF = -1e30
 
@@ -319,6 +321,51 @@ def _proj(x, w, parallel=None):
     return out.reshape((B, T) + out_shape)
 
 
+def _autograd_path(parallel) -> bool:
+    """Whether a block meets the model axis through the collectives
+    with a backward (`sharding.copy_to_split` ...): the train profile,
+    or a residual T-sharded over model (`parallel.seq_shard`, as
+    `models.model.forward` hands it to the blocks). The serve profile's
+    plain path keeps its in-place all_reduce (its CUDA graphs capture
+    it)."""
+    return parallel is not None and (parallel.profile == "train"
+                                     or parallel.seq_shard)
+
+
+def _fsdp(w, parallel, dim: int):
+    """A weight whose `hidden_in` dim (`dim`) the train profile shards
+    over the FSDP axes, gathered whole at use (its backward
+    reduce-scatters the grad over those axes); w itself otherwise."""
+    if parallel is None or parallel.profile != "train":
+        return w
+    return gather_to_split(w, parallel, parallel.fsdp_axes, dim)
+
+
+def _col_in(h, parallel):
+    """The input of this rank's column-parallel projections (q/k/v, up
+    and gate): under seq_shard the T-sharded h gathered over model
+    (backward: reduce_scatter); under the train profile h itself whose
+    grad sums over model; otherwise h."""
+    if not _autograd_path(parallel):
+        return h
+    if parallel.seq_shard:
+        return gather_to_split(h, parallel, parallel.tp_axis, 1)
+    return copy_to_split(h, parallel, parallel.tp_axis)
+
+
+def _row_proj(x, w, parallel, dim: int):
+    """A row-parallel projection (wo, w_down; `dim` its hidden_in dim)
+    and its sum over model: under seq_shard reduce-scattered into the
+    T-sharded residual; under the train profile an out-of-place sum;
+    otherwise `_proj`'s in-place all_reduce."""
+    if not _autograd_path(parallel):
+        return _proj(x, w, parallel)
+    out = _proj(x, _fsdp(w, parallel, dim))
+    if parallel.seq_shard:
+        return scatter_to_split(out, parallel, parallel.tp_axis, 1)
+    return sum_to_shared(out, parallel, parallel.tp_axis)
+
+
 def _kv_heads_for(k, Hq: int, parallel):
     """k or v (B,T,KV,hd) holding every kv head (n_kv_heads does not
     divide the model axis, so every rank computes them all), cut to the
@@ -386,11 +433,11 @@ def attn_block(p, x, cfg: ModelConfig, kind: str, positions,
     in-place write updates the stacked cache without a copy."""
     window = cfg.window if kind == "local" else 0
     eps = cfg.norm_eps
-    h = rms_norm(x, p["ln1"], eps)
+    h = _col_in(rms_norm(x, p["ln1"], eps), parallel)
     B, T, _ = h.shape
-    q = _proj(h, p["wq"])
-    k = _proj(h, p["wk"])
-    v = _proj(h, p["wv"])
+    q = _proj(h, _fsdp(p["wq"], parallel, 0))
+    k = _proj(h, _fsdp(p["wk"], parallel, 0))
+    v = _proj(h, _fsdp(p["wv"], parallel, 0))
     q, k = _qk_norm(q, k, p, eps)
     q = rope(q, positions, theta=cfg.rope_theta, rotary_pct=cfg.rotary_pct)
     k = rope(k, positions, theta=cfg.rope_theta, rotary_pct=cfg.rotary_pct)
@@ -447,13 +494,13 @@ def attn_block(p, x, cfg: ModelConfig, kind: str, positions,
             v = _kv_heads_for(v, cfg.q_heads_padded, parallel)
         out = attention(q, k, v, pos_q, pos_k, cfg, window=window,
                         valid_from=valid_from, cache_pos=cache_pos)
-    out = _proj(out, p["wo"], parallel)
+    out = _row_proj(out, p["wo"], parallel, 2)
     if cfg.sandwich_norm:
         out = rms_norm(out, p["post_attn_norm"], eps)
     x = x + out
 
     if "mlp" in p:
-        h = rms_norm(x, p["ln2"], eps)
+        h = _col_in(rms_norm(x, p["ln2"], eps), parallel)
         out = mlp(p["mlp"], h, cfg, parallel)
         if cfg.sandwich_norm:
             out = rms_norm(out, p["post_ffn_norm"], eps)
@@ -463,12 +510,14 @@ def attn_block(p, x, cfg: ModelConfig, kind: str, positions,
 
 def mlp(p, x, cfg: ModelConfig, parallel=None):
     """Gated (or plain) MLP. parallel: up and gate hold this rank's
-    columns of ff, down its rows, summed over the model axis."""
+    columns of ff, down its rows, summed over the model axis (x is the
+    column-parallel input `_col_in` gives; under seq_shard whole T, the
+    output this rank's block of T)."""
     act = act_fn(cfg.mlp_act)
     if cfg.mlp_gated:
-        u = _proj(x, p["w_up"])
-        g = _proj(x, p["w_gate"])
+        u = _proj(x, _fsdp(p["w_up"], parallel, 0))
+        g = _proj(x, _fsdp(p["w_gate"], parallel, 0))
         h = act(g) * u
     else:
-        h = act(_proj(x, p["w_up"]))
-    return _proj(h, p["w_down"], parallel)
+        h = act(_proj(x, _fsdp(p["w_up"], parallel, 0)))
+    return _row_proj(h, p["w_down"], parallel, 1)

@@ -36,8 +36,11 @@ from repro_torch.models.layers import attn_block, f32_up, rms_norm, softcap
 from repro_torch.models.moe import moe_block_ffn
 from repro_torch.models.rglru import rglru_block
 from repro_torch.models.ssd import ssd_block
-from repro_torch.sharding import (all_gather, all_reduce, local_shape,
-                                  make_rules, spec_for)
+from repro_torch.sharding import (all_gather, all_reduce, copy_to_split,
+                                  entry_axes, gather_to_shared,
+                                  gather_to_split, is_axes_leaf, local_shape,
+                                  make_rules, slice_to_split, spec_for,
+                                  sum_to_shared)
 from repro_torch.utils import dtype_of, resolve_device
 
 init_params = pmod.init_params
@@ -45,6 +48,7 @@ param_logical_axes = pmod.param_logical_axes
 abstract_params = pmod.abstract_params
 
 RECURRENT_KINDS = ("rglru", "ssd")
+ATTN_ONLY_KINDS = ("attn", "local", "global")
 
 
 # --------------------------------------------------------------------------
@@ -235,16 +239,98 @@ def _apply_group(cfg: ModelConfig, ps, x, positions, cs, cache_pos,
 
 
 def check_parallel(cfg: ModelConfig, parallel):
-    """Raise for what the sharded path does not compute yet: the train
-    profile and its layout levers. The serve profile computes every
-    block kind (attention, MoE, RG-LRU, SSD)."""
-    if parallel.profile != "serve" or parallel.seq_shard or \
-            parallel.attn_pin:
+    """Raise for what the sharded path does not compute yet: the MoE,
+    RG-LRU and SSD blocks under the train profile or its levers
+    (seq_shard, attn_pin). The serve profile computes every block kind;
+    the train profile, seq_shard (seq_mode "full" or "carry") and
+    attn_pin compute the attention-only patterns (attn / local /
+    global). attn_pin is accepted and changes nothing: it pins q/k/v
+    head-sharded in the reference (`src/repro/models/layers.py`), which
+    is how the port's attention always runs (each rank its own heads,
+    by hand)."""
+    levers = (parallel.profile != "serve" or parallel.seq_shard
+              or parallel.attn_pin)
+    kinds = set(cfg.pattern) | set(cfg.tail_kinds)
+    other = sorted(kinds - set(ATTN_ONLY_KINDS))
+    if levers and other:
         raise NotImplementedError(
             f"profile={parallel.profile!r} seq_shard={parallel.seq_shard} "
-            f"attn_pin={parallel.attn_pin}: the sharded path runs the serve "
-            f"profile only; the train profile (FSDP, seq_shard / seq_mode / "
-            f"attn_pin) is ROADMAP queue 1 item 3.3")
+            f"attn_pin={parallel.attn_pin} with {other} blocks: the train "
+            f"profile and its levers run the attention-only models; the "
+            f"MoE, RG-LRU and SSD blocks under them are ROADMAP queue 1 "
+            f"item 3.3")
+
+
+def data_rows(parallel, batch: int):
+    """This rank's rows of a batch of `batch` (a slice) where it splits
+    evenly over the data axes; None where every data rank computes
+    every row."""
+    if not parallel.data_ok(batch):
+        return None
+    Bl = batch // parallel.dp_size
+    d = parallel.index(parallel.data_axes)
+    return slice(d * Bl, (d + 1) * Bl)
+
+
+def residual_t_sharded(parallel, T: int) -> bool:
+    """Whether forward keeps the residual T-sharded over model
+    (`parallel.seq_shard`, T > 1 and T a multiple of the model axis)."""
+    return (parallel is not None and parallel.seq_shard and T > 1
+            and T % parallel.tp_size == 0)
+
+
+# The parameters replicated over model, by how each model rank uses
+# them (`grad_sync_axes`): on its own part (its heads' q / k norms; its
+# q group's kv heads where kv_heads is not split), or whole, or (the
+# scan groups' block norms) on its block of T under seq_shard "full"
+# and whole otherwise.
+_MODEL_PARTIAL = ("q_norm", "k_norm", "wk", "wv")
+_MODEL_WHOLE = ("final_norm",)
+_SEQ_NORMS = ("ln1", "ln2", "post_attn_norm", "post_ffn_norm")
+
+
+def grad_sync_axes(cfg: ModelConfig, parallel, T: int):
+    """Per parameter leaf (the tree of `param_logical_axes`), the mesh
+    axes its grad is summed over after the train profile's backward:
+    those on which ranks computed different contributions to a leaf
+    that is not split there.
+
+    - The data axes the leaf is not split on: every data axis for a
+      leaf replicated over data; `pod` alone for an FSDP leaf, whose
+      gather's reduce_scatter has summed over `data` already.
+    - `model` for a leaf replicated over model that each model rank
+      uses on its own part: q_norm / k_norm (each rank's heads), wk /
+      wv where n_kv_heads does not divide the model axis (each rank's
+      q group's kv heads), and the scan groups' block norms under
+      seq_shard "full" (each rank's block of T).
+
+    A leaf whose grad every model rank holds whole is not summed over
+    model. A leaf replicated over model that none of these lists names
+    raises: its sync cannot be told from its name."""
+    rules = make_rules(parallel, cfg)
+    seq_full = (residual_t_sharded(parallel, T)
+                and parallel.seq_mode == "full")
+
+    def walk(tree, key, grouped):
+        if isinstance(tree, dict):
+            return {k: walk(v, k, grouped) for k, v in tree.items()}
+        if not is_axes_leaf(tree):
+            return type(tree)(walk(v, key, grouped) for v in tree)
+        split = {a for e in spec_for(tree, rules) for a in entry_axes(e)}
+        axes = tuple(a for a in parallel.data_axes if a not in split)
+        if parallel.tp_axis in split:
+            return axes
+        if key in _MODEL_PARTIAL or (grouped and seq_full
+                                     and key in _SEQ_NORMS):
+            return axes + (parallel.tp_axis,)
+        if key in _MODEL_WHOLE or key in _SEQ_NORMS:
+            return axes
+        raise ValueError(
+            f"parameter {key!r} is replicated over {parallel.tp_axis!r}: "
+            "add it to _MODEL_PARTIAL (each model rank uses it on its "
+            "own part) or _MODEL_WHOLE (every model rank uses it whole)")
+    return {k: walk(v, k, k == "blocks")
+            for k, v in param_logical_axes(cfg).items()}
 
 
 def whole_embed_table(params, cfg: ModelConfig, parallel):
@@ -261,11 +347,12 @@ def whole_embed_table(params, cfg: ModelConfig, parallel):
 def _whole_d(t, cfg: ModelConfig, parallel):
     """t (..., d/dp), its last dim the `embed` axis's data shard,
     gathered over the data axes into (..., d); t itself where its d is
-    already whole."""
+    already whole. Its backward (the train profile): each data rank's
+    grad, summed over data, its shard's block kept."""
     if t.shape[-1] == cfg.d_model:
         return t
     axes = spec_for(("vocab", "embed"), make_rules(parallel, cfg))[1]
-    return all_gather(t, parallel, axes, t.ndim - 1)
+    return gather_to_split(t, parallel, axes, t.ndim - 1)
 
 
 def _embed(table, inputs, cfg: ModelConfig, parallel, rows):
@@ -277,7 +364,9 @@ def _embed(table, inputs, cfg: ModelConfig, parallel, rows):
     rest) and sums them over the model axis: each row is one rank's row
     plus zeros, so it equals the unsharded lookup. A d shard's rows are
     then gathered over the data axes, so (B, T, d) moves and the table
-    stays where it is."""
+    stays where it is. Under the train profile the sum has a backward
+    (identity: every model rank repeats what follows), and so has the
+    gather."""
     if parallel is None:
         return table[inputs.long()]
     vocab_axis = make_rules(parallel, cfg)["vocab"]
@@ -287,9 +376,12 @@ def _embed(table, inputs, cfg: ModelConfig, parallel, rows):
         V_loc = table.shape[0]
         idx = inputs.long() - parallel.index((vocab_axis,)) * V_loc
         inside = (idx >= 0) & (idx < V_loc)
-        x = all_reduce(torch.where(inside[..., None],
-                                   table[idx.clamp(0, V_loc - 1)], 0.0),
-                       parallel, vocab_axis)
+        x = torch.where(inside[..., None], table[idx.clamp(0, V_loc - 1)],
+                        0.0)
+        if parallel.profile == "train":
+            x = sum_to_shared(x, parallel, vocab_axis)
+        else:   # in place, no clone: the serve engine's graphs capture it
+            x = all_reduce(x, parallel, vocab_axis)
     x = _whole_d(x, cfg, parallel)
     return x if rows is None else x[rows]
 
@@ -306,40 +398,64 @@ def forward(params, inputs, cfg: ModelConfig, *, parallel=None, cache=None,
     device that `decode_step` builds (default 0, as in the reference).
     valid_from: optional (B,) int32 per-row first attendable position
     (attention-only patterns; recurrent blocks raise).
-    parallel: a `sharding.ParallelConfig` (serve profile; the train
-    profile raises): params are this rank's shards
+    parallel: a `sharding.ParallelConfig`: params are this rank's shards
     (`params.shard_params`), cache this rank's (`init_cache(...,
     parallel=)`); inputs, positions and valid_from are the whole batch's
     on every rank, and each data rank takes its own rows where B divides
     the data axes; otherwise every rank computes every row, and the
     blocks get a ParallelConfig whose `data_axes` is empty (the axes the
     activations' batch is split over: the sharded MoE reads them).
-    Every rank returns the whole batch's logits (all-gathered over the
-    model and data axes).
+    Serve profile: every rank returns the whole batch's logits
+    (all-gathered over the model and data axes). Train profile
+    (attention-only patterns; `check_parallel`): B must divide the data
+    axes, and each data rank returns its own rows' logits (gathered over
+    model), so its loss is its rows' and autograd differentiates every
+    collective (`sharding.gather_to_split` ...); each weight is gathered
+    over the FSDP axes where it is used.
+    parallel.seq_shard (Megatron sequence parallelism, the reference's
+    T-sharded residual): between the blocks each model rank holds its
+    block of T. seq_mode "full": every block takes and returns the
+    block, gathering h over model before its column-parallel
+    projections and reduce-scattering the row-parallel ones; "carry":
+    each scan group gathers x over model at entry, runs as without
+    seq_shard, and keeps its block of T at exit. The residual is
+    gathered whole before the tail blocks and the final norm. Where T
+    does not divide the model axis (or T == 1) the residual stays whole
+    on every model rank (the reference relies on GSPMD's padding there;
+    both give the unsharded numbers).
     cfg.remat == "block": under autograd and without a cache, each scan
     group's blocks run under `torch.utils.checkpoint` (the reference's
     `jax.checkpoint` of its scan body): their activations are computed
-    again in the backward instead of kept. "moe_save": the same, but a
-    selective-checkpoint policy keeps each MoE block's output (the
-    reference's save_only_these_names("moe_out")); without MoE blocks it
-    computes as "block". A cached forward writes its cache in place,
-    which a second run would write again, and gives the same values
-    either way, so it runs as it is.
+    again in the backward instead of kept (under parallel the recompute
+    runs the group's collectives again, alike on every rank). "moe_save":
+    the same, but a selective-checkpoint policy keeps each MoE block's
+    output (the reference's save_only_these_names("moe_out")); without
+    MoE blocks it computes as "block". A cached forward writes its cache
+    in place, which a second run would write again, and gives the same
+    values either way, so it runs as it is.
     Returns (logits, {"aux_loss": 0-d fp32, "cache": cache}); aux_loss is
     the MoE blocks' load-balance losses summed (zero without MoE)."""
     rows = bpar = None
+    train = parallel is not None and parallel.profile == "train"
+    seq = mode = False
     if parallel is not None:
         check_parallel(cfg, parallel)
         B = inputs.shape[0]
-        bpar = parallel
-        if parallel.data_ok(B):
-            Bl = B // parallel.dp_size
-            d = parallel.index(parallel.data_axes)
-            rows = slice(d * Bl, (d + 1) * Bl)
+        rows = data_rows(parallel, B)
+        if train and rows is None:
+            raise ValueError(f"train profile: a batch of {B} rows does not "
+                             f"split over the data axes "
+                             f"({parallel.dp_size} ranks)")
+        seq = residual_t_sharded(parallel, inputs.shape[1])
+        mode = parallel.seq_mode
+        # The blocks read seq_shard as "the residual I get is T-sharded".
+        bpar = dataclasses.replace(parallel,
+                                   seq_shard=seq and mode == "full")
+        if rows is not None:
             if valid_from is not None:
                 valid_from = valid_from[rows]
         else:
-            bpar = dataclasses.replace(parallel, data_axes=())
+            bpar = dataclasses.replace(bpar, data_axes=())
     compute_dtype = dtype_of(cfg.compute_dtype)
     table = params["embed"]
     if parallel is not None and cfg.tie_embeddings:
@@ -359,6 +475,8 @@ def forward(params, inputs, cfg: ModelConfig, *, parallel=None, cache=None,
         positions = torch.arange(T, dtype=torch.int32, device=x.device)
     if cache_pos is None:
         cache_pos = torch.zeros((), dtype=torch.int32, device=x.device)
+    if seq:
+        x = slice_to_split(x, parallel, parallel.tp_axis, 1)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = (cfg.remat in ("block", "moe_save") and cache is None
@@ -367,6 +485,9 @@ def forward(params, inputs, cfg: ModelConfig, *, parallel=None, cache=None,
     if cfg.remat == "moe_save":
         context_fn = functools.partial(create_selective_checkpoint_contexts,
                                        _moe_save_policy)
+    group = _apply_group
+    if seq and mode == "carry":
+        group = functools.partial(_carry_group, parallel)
     G = cfg.n_groups_scan
     groups = [_unstack(b, G) for b in params["blocks"]]
     for g in range(G):
@@ -374,14 +495,17 @@ def forward(params, inputs, cfg: ModelConfig, *, parallel=None, cache=None,
         cs = None if cache is None else [_index(c, g)
                                          for c in cache["blocks"]]
         if remat:
-            x, aux = checkpoint(_apply_group, cfg, ps, x, positions, cs,
+            x, aux = checkpoint(group, cfg, ps, x, positions, cs,
                                 cache_pos, valid_from, aux, bpar,
                                 use_reentrant=False,
                                 preserve_rng_state=False,
                                 context_fn=context_fn)
         else:
-            x, aux = _apply_group(cfg, ps, x, positions, cs, cache_pos,
-                                  valid_from, aux, bpar)
+            x, aux = group(cfg, ps, x, positions, cs, cache_pos,
+                           valid_from, aux, bpar)
+    if seq:
+        x = gather_to_shared(x, parallel, parallel.tp_axis, 1)
+        bpar = dataclasses.replace(bpar, seq_shard=False)
     for i, kind in enumerate(cfg.tail_kinds):
         c = None if cache is None else cache["tail"][i]
         x, a = _apply_block(kind, params["tail"][i], x, cfg, positions, c,
@@ -392,19 +516,38 @@ def forward(params, inputs, cfg: ModelConfig, *, parallel=None, cache=None,
     if logits_last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    vocab_axis = None if parallel is None else make_rules(
+        parallel, cfg)["vocab"]
+    if train and vocab_axis is not None:
+        # Each model rank's vocab block of the logits: the grad of x
+        # sums over model.
+        x = copy_to_split(x, parallel, vocab_axis)
     if cfg.tie_embeddings:
         logits = torch.einsum("btd,vd->btv", x, table.to(x.dtype))
     else:
-        logits = torch.einsum("btd,dv->btv", x,
-                              params["lm_head"].to(x.dtype))
+        head = params["lm_head"]
+        if train:
+            head = gather_to_split(head, parallel, parallel.fsdp_axes, 0)
+        logits = torch.einsum("btd,dv->btv", x, head.to(x.dtype))
     logits = softcap(f32_up(logits), cfg.final_softcap)
-    if parallel is not None:
-        vocab_axis = make_rules(parallel, cfg)["vocab"]
-        if vocab_axis is not None:
-            logits = all_gather(logits, parallel, vocab_axis, 2)
-        if rows is not None:
-            logits = all_gather(logits, parallel, parallel.data_axes, 0)
+    if vocab_axis is not None:
+        # The cross-entropy (train) runs on every model rank.
+        logits = gather_to_shared(logits, parallel, vocab_axis, 2)
+    if rows is not None and not train:
+        logits = all_gather(logits, parallel, parallel.data_axes, 0)
     return logits, {"aux_loss": aux, "cache": cache}
+
+
+def _carry_group(parallel, cfg: ModelConfig, ps, x, positions, cs,
+                 cache_pos, valid_from, aux, bpar):
+    """seq_mode "carry": the T-sharded carry gathered over model at the
+    group's entry, the group run as without seq_shard (q/k/v and the
+    MLP head- and ff-sharded on the whole T), this rank's block of T
+    kept at its exit."""
+    x = gather_to_shared(x, parallel, parallel.tp_axis, 1)
+    x, aux = _apply_group(cfg, ps, x, positions, cs, cache_pos, valid_from,
+                          aux, bpar)
+    return slice_to_split(x, parallel, parallel.tp_axis, 1), aux
 
 
 def decode_step(params, token, cache, cache_pos, cfg: ModelConfig, *,

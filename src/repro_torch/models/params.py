@@ -132,18 +132,29 @@ def model_tree(cfg: ModelConfig, mk, mk_stacked):
     return params
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                parallel=None) -> dict:
     """Random weights from a seeded generator on `device` (the card by
-    default; pass device="cpu" to build on the host)."""
+    default; pass device="cpu" to build on the host). parallel: this
+    rank's shards of the same weights, each leaf drawn whole and cut at
+    once (by the specs of `param_logical_axes`), so one whole leaf at a
+    time lives on the device, never the whole tree."""
     device = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
 
+    def cut(x, axes):
+        if parallel is None:
+            return x
+        return shard_leaf(x, tree_specs(axes, parallel, cfg),
+                          parallel.sizes, parallel.coords())
+
     def mk(shape, axes, init):
-        return _draw(gen, shape, init, dtype, device)
+        return cut(_draw(gen, shape, init, dtype, device), axes)
 
     def mk_stacked(shape, axes, init, n):
-        return _draw(gen, (n,) + shape, init, dtype, device, stacked=True)
+        return cut(_draw(gen, (n,) + shape, init, dtype, device,
+                         stacked=True), ("layers",) + axes)
 
     return model_tree(cfg, mk, mk_stacked)
 

@@ -101,6 +101,10 @@ class InferenceEngine:
         self._graphs_on = graphs and self.device.type == "cuda"
         if parallel is not None:
             check_parallel(cfg, parallel)
+            if parallel.profile != "serve":
+                raise ValueError(
+                    f"profile {parallel.profile!r}: the engine serves "
+                    f"(make_parallel(mesh, 'serve'))")
             if self._graphs_on and _has_gloo_group(parallel):
                 raise ValueError(
                     "CUDA graphs cannot capture gloo collectives: pass "

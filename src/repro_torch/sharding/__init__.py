@@ -8,7 +8,8 @@ axes, entry by entry. Two profiles:
 - **train**: FSDP(ZeRO-3) + TP. Weight matmul-input dims (`hidden_in`,
   `embed`, `expert_in`) shard over the data axis; TP dims (`heads`,
   `ff`, `vocab`, `experts`|`expert_ff`, `rnn_width`, `ssd_inner`...)
-  over the model axis. The port does not run it yet (ROADMAP queue 1).
+  over the model axis. The port trains the attention-only models on it
+  (the MoE, RG-LRU and SSD blocks raise: ROADMAP queue 1 item 3.3).
 - **serve**: heads and `ff` over model, no FSDP for dense weights, the
   embedding table's `embed` dim over data; KV caches: batch over (pod,
   data), kv-heads over model where n_kv_heads divides the model axis,
@@ -19,7 +20,11 @@ does tensor parallelism by hand: `shard_leaf` cuts a full tensor into
 this rank's contiguous shard by its spec once, at load, and the model
 runs each rank's local shards with explicit collectives over the mesh's
 process groups (`all_reduce`, `all_gather`, `reduce_scatter`; see
-`models/layers.py` and `models/moe.py`).
+`models/layers.py` and `models/moe.py`). Those work in place or out of
+autograd's sight (the serve path's CUDA graphs capture them as they
+are); the train profile differentiates through the autograd
+collectives at the end of this module, each named by what its output
+feeds.
 A spec is a `Spec`, a tuple whose entries are what the reference's
 `PartitionSpec` holds: None, an axis name, or a tuple of axis names.
 """
@@ -191,20 +196,22 @@ def spec_for(axes: Tuple[str, ...], rules: dict) -> Spec:
     return Spec(*entries)
 
 
-def _is_axes_leaf(x) -> bool:
+def is_axes_leaf(x) -> bool:
     # Non-empty tuples of axis names; empty tuples are STRUCTURAL (e.g. an
     # arch with no tail layers) and must stay part of the tree shape.
     return (isinstance(x, tuple) and len(x) > 0 and all(
         isinstance(a, (str, type(None))) for a in x))
 
 
-def _map_axes(fn, tree):
-    if _is_axes_leaf(tree):
+def map_axes(fn, tree):
+    """fn over every logical-axes tuple of a tree (empty tuples are
+    structure, not axes)."""
+    if is_axes_leaf(tree):
         return fn(tree)
     if isinstance(tree, dict):
-        return {k: _map_axes(fn, v) for k, v in tree.items()}
+        return {k: map_axes(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_map_axes(fn, v) for v in tree)
+        return type(tree)(map_axes(fn, v) for v in tree)
     return tree
 
 
@@ -224,7 +231,7 @@ def tree_specs(logical_tree, parallel: ParallelConfig, cfg=None):
                      "expert_ff": tuple(fsdp) + (tp,)},
         }[mode]
         rules.update(remap)
-    return _map_axes(lambda axes: spec_for(axes, rules), logical_tree)
+    return map_axes(lambda axes: spec_for(axes, rules), logical_tree)
 
 
 def batch_spec(parallel: ParallelConfig, ndim: int) -> Spec:
@@ -307,6 +314,54 @@ def gather_leaf(shards: dict, spec, sizes: dict) -> torch.Tensor:
     for coord, shard in shards.items():
         out[_dim_slices(full, spec, sizes, dict(zip(names, coord)))] = shard
     return out
+
+
+def split_axes(spec, sizes: dict, dim=None) -> Tuple[str, ...]:
+    """The mesh axes of more than one rank that `spec` splits dim `dim`
+    over (a non-negative index; None: every dim's), major first. A dim
+    over axes of size 1 is whole."""
+    if dim is None:
+        entries = tuple(spec)
+    else:
+        entries = (spec[dim] if dim < len(spec) else None,)
+    return tuple(a for e in entries for a in entry_axes(e) if sizes[a] > 1)
+
+
+def _map_specs(fn, tree, specs):
+    """fn(leaf, spec) over a tree and its spec tree (a Spec is a tuple:
+    the tree, not the specs, says where the leaves are)."""
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_specs(fn, v, s)
+                          for v, s in zip(tree, specs, strict=True))
+    return fn(tree, specs)
+
+
+def shard_tree(full_tree, spec_tree, parallel: ParallelConfig):
+    """This rank's shard of every leaf of a whole tree (a train state:
+    `tree_specs(train_state_logical_axes(...))`), cut by `shard_leaf`."""
+    sizes, coords = parallel.sizes, parallel.coords()
+    return _map_specs(lambda x, s: shard_leaf(x, s, sizes, coords),
+                      full_tree, spec_tree)
+
+
+def gather_tree(tree, spec_tree, parallel: ParallelConfig, device=None,
+                keep: bool = True):
+    """Inverse of `shard_tree`: each leaf's shards gathered over the
+    axes of each split dim, one leaf at a time (a collective: every rank
+    calls it). A leaf split over nothing is returned as it is. device:
+    each whole leaf is moved there as soon as it is gathered (the host,
+    where the whole state does not fit the card). keep=False: each is
+    dropped instead, and None returned (a rank that writes nothing)."""
+    def whole(x, spec):
+        for dim, entry in enumerate(spec):
+            x = all_gather(x, parallel, entry, dim)
+        if not keep:
+            return None
+        return x if device is None else x.to(device)
+    out = _map_specs(whole, tree, spec_tree)
+    return out if keep else None
 
 
 # --------------------------------------------------------------------------
@@ -392,3 +447,156 @@ def reduce_scatter(x: torch.Tensor, parallel: ParallelConfig, axes,
         _reduce_scatter_into(out, xt, parallel.mesh.get_group(a))
         x = out.movedim(0, dim)
     return x
+
+
+# --------------------------------------------------------------------------
+# Collectives with a backward (the train profile)
+# --------------------------------------------------------------------------
+#
+# The loss is computed once per data rank, on its own rows, and
+# replicated over `model`. A collective's backward then follows from
+# what its output feeds: work that every rank of the group repeats (the
+# backward gives each rank its own grad: identity for a sum, a slice for
+# a gather), or different work on each rank whose results are summed
+# into the loss (the backward sums over the group: all_reduce for a
+# sum, reduce_scatter for a gather). Each wrapper is named by that.
+# They work out of place. Over axes of size 1 the gathers, slices and
+# reduce-scatters return their input; the sums still call all_reduce.
+
+def _size(parallel: ParallelConfig, axes) -> int:
+    return int(np.prod([parallel.sizes[a] for a in entry_axes(axes)]))
+
+
+def _block(x, parallel: ParallelConfig, axes, dim: int):
+    """This rank's block of x's dim `dim`, split over `axes` (the first
+    major), as a contiguous tensor."""
+    n = x.shape[dim] // _size(parallel, axes)
+    out = x.narrow(dim, parallel.index(entry_axes(axes)) * n, n)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def _summed(x, parallel: ParallelConfig, axes):
+    out = x.clone(memory_format=torch.contiguous_format)
+    return all_reduce(out, parallel, axes)
+
+
+class _GatherToSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, parallel, axes, dim):
+        ctx.args = (parallel, axes, dim)
+        return all_gather(x, parallel, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        parallel, axes, dim = ctx.args
+        return reduce_scatter(g, parallel, axes, dim), None, None, None
+
+
+class _GatherToShared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, parallel, axes, dim):
+        ctx.args = (parallel, axes, dim)
+        return all_gather(x, parallel, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        parallel, axes, dim = ctx.args
+        return _block(g, parallel, axes, dim), None, None, None
+
+
+class _SumToShared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, parallel, axes):
+        return _summed(x, parallel, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyToSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, parallel, axes):
+        ctx.args = (parallel, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, *ctx.args), None, None
+
+
+class _ScatterToSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, parallel, axes, dim):
+        ctx.args = (parallel, axes, dim)
+        return reduce_scatter(x, parallel, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        parallel, axes, dim = ctx.args
+        return all_gather(g, parallel, axes, dim), None, None, None
+
+
+class _SliceToSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, parallel, axes, dim):
+        ctx.args = (parallel, axes, dim)
+        return _block(x, parallel, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        parallel, axes, dim = ctx.args
+        return all_gather(g, parallel, axes, dim), None, None, None
+
+
+def gather_to_split(x, parallel: ParallelConfig, axes, dim: int):
+    """all_gather of x's dim over `axes` whose output feeds different
+    work on each rank of the group (an FSDP weight at use, a T-sharded
+    residual before a column-parallel projection, the embedding's d
+    over data before each data rank takes its rows); backward:
+    reduce_scatter, each rank's grad summed over the group."""
+    if _size(parallel, axes) == 1:
+        return x
+    return _GatherToSplit.apply(x, parallel, axes, dim)
+
+
+def gather_to_shared(x, parallel: ParallelConfig, axes, dim: int):
+    """all_gather of x's dim over `axes` whose output feeds work every
+    rank of the group repeats (the logits over a vocab-sharded table,
+    whose cross-entropy runs on every model rank; the residual's T
+    before the final norm); backward: this rank's slice of the grad."""
+    if _size(parallel, axes) == 1:
+        return x
+    return _GatherToShared.apply(x, parallel, axes, dim)
+
+
+def sum_to_shared(x, parallel: ParallelConfig, axes):
+    """x summed over `axes` (all_reduce, out of place), the sum feeding
+    work every rank repeats (a row-parallel projection's output, the
+    vocab-sharded embedding lookup); backward: identity."""
+    return _SumToShared.apply(x, parallel, axes)
+
+
+def copy_to_split(x, parallel: ParallelConfig, axes):
+    """x itself, feeding different work on each rank of `axes` (the
+    input of a column-parallel projection); backward: the grads summed
+    over the group."""
+    return _CopyToSplit.apply(x, parallel, axes)
+
+
+def scatter_to_split(x, parallel: ParallelConfig, axes, dim: int):
+    """x summed over `axes`, each rank keeping its block of `dim`
+    (`reduce_scatter`): a row-parallel output into the T-sharded
+    residual; backward: all_gather."""
+    if _size(parallel, axes) == 1:
+        return x
+    return _ScatterToSplit.apply(x, parallel, axes, dim)
+
+
+def slice_to_split(x, parallel: ParallelConfig, axes, dim: int):
+    """This rank's block of dim `dim` of an x every rank of `axes`
+    holds whole (the residual entering the T-sharded stream); backward:
+    all_gather."""
+    if _size(parallel, axes) == 1:
+        return x
+    return _SliceToSplit.apply(x, parallel, axes, dim)

@@ -28,8 +28,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.models.params import (tree_leaves_sorted,
+from repro_torch.models.params import (Packed, tree_leaves_sorted, tree_map,
                                        tree_unflatten_sorted)
+from repro_torch.sharding import shard_leaf
 from repro_torch.utils import resolve_device
 
 
@@ -102,11 +103,13 @@ def committed_steps(path: str):
 
 
 def restore_checkpoint(path: str, target_state, *, step: Optional[int] = None,
-                       host: int = 0, device=None):
+                       host: int = 0, device=None, specs=None, parallel=None):
     """Restore into the structure, shapes and dtypes of `target_state`,
     concrete or on the "meta" device. Each leaf lands on `device` if
     given, else on its target leaf's device; a meta target's leaves on
-    the card."""
+    the card. specs (the target's Spec tree) and parallel: this rank's
+    shards, each leaf read whole to the host, one at a time, and only
+    its shard moved to the device."""
     steps = committed_steps(path)
     if not steps:
         raise FileNotFoundError(f"no committed checkpoints under {path}")
@@ -118,13 +121,21 @@ def restore_checkpoint(path: str, target_state, *, step: Optional[int] = None,
         raise ValueError(
             "checkpoint/model structure mismatch: "
             f"{manifest['fingerprint']} vs {tree_fingerprint(target_state)}")
+    refs = tree_leaves_sorted(target_state)
+    cuts = [None] * len(refs) if specs is None else [
+        pk.vals[1] for pk in tree_leaves_sorted(
+            tree_map(Packed, target_state, specs))]
     leaves = []
     with np.load(os.path.join(step_dir, f"shard_{host}.npz")) as data:
-        for i, ref in enumerate(tree_leaves_sorted(target_state)):
-            dev = device if device is not None else (
-                "cuda" if ref.device.type == "meta" else ref.device)
-            leaves.append(_to_torch(data[f"leaf_{i}"], ref,
-                                    resolve_device(dev)))
+        for i, (ref, spec) in enumerate(zip(refs, cuts, strict=True)):
+            dev = resolve_device(device if device is not None else (
+                "cuda" if ref.device.type == "meta" else ref.device))
+            if spec is None:
+                leaves.append(_to_torch(data[f"leaf_{i}"], ref, dev))
+                continue
+            whole = _to_torch(data[f"leaf_{i}"], ref, torch.device("cpu"))
+            leaves.append(shard_leaf(whole, spec, parallel.sizes,
+                                     parallel.coords()).to(dev))
     return tree_unflatten_sorted(target_state, leaves), manifest
 
 

@@ -7,12 +7,22 @@
 - `mixed_precision`: live params in their own dtype, an fp32 master copy
   in the optimizer state.
 
-As in the reference, `init(params)` returns a state tree and
+As in the reference, `init(params)` returns a state tree,
 `update(grads, state, params, step)` returns (new_params, new_state,
 metrics) without touching its inputs, so a checkpoint of the train state
-holds the reference's leaves. Schedules and scalars are 0-d fp32 tensors
-on the step's device, computed in the reference's order, so nothing is
-read back to the host.
+holds the reference's leaves, and `state_logical_axes(param_axes)` the
+state's logical axes, so it shards like (or factored from) its
+parameters. Schedules and scalars are 0-d fp32 tensors on the step's
+device, computed in the reference's order, so nothing is read back to
+the host.
+
+Sharded (the train profile): `update(..., layout)` takes this rank's
+shards of grads, state and params, and a `Layout` (the mesh and the
+params' `sharding.Spec` tree). Every reduction across elements (the
+global norm, Adafactor's row / column and whole-leaf means) is then a
+local reduction plus an all_reduce over the mesh axes its dims are split
+on, and only those; a dim over axes of size 1 is whole, so a one-rank
+mesh computes the unsharded update's bits.
 """
 
 from __future__ import annotations
@@ -24,11 +34,37 @@ import torch
 
 from repro_torch.models.params import (Packed, tree_leaves_sorted, tree_map,
                                        unpack)
+from repro_torch.sharding import all_reduce, map_axes, split_axes
 
 
 class Optimizer(NamedTuple):
     init: Callable          # params -> opt_state
-    update: Callable        # (grads, opt_state, params, step) -> (new_params, new_opt_state, metrics)
+    update: Callable        # (grads, opt_state, params, step[, layout]) -> (new_params, new_opt_state, metrics)
+    state_logical_axes: Callable  # param_axes_tree -> state_axes_tree
+
+
+class Layout(NamedTuple):
+    """Where a sharded update's leaves live: the mesh (`parallel`, a
+    `sharding.ParallelConfig`) and the params' Spec tree (`specs`)."""
+    parallel: object
+    specs: object
+
+
+def _mean(x, dim: int, axes, parallel, keepdim: bool = False):
+    """torch.mean over x's dim `dim`, that dim split over the mesh axes
+    `axes` (each rank's sum, summed over them)."""
+    if not axes:
+        return torch.mean(x, dim=dim, keepdim=keepdim)
+    s = all_reduce(torch.sum(x, dim=dim, keepdim=keepdim), parallel, axes)
+    return s / (x.shape[dim] * math.prod(parallel.sizes[a] for a in axes))
+
+
+def _mean_all(x, axes, parallel):
+    """torch.mean over every element of a leaf split over `axes`."""
+    if not axes:
+        return torch.mean(x)
+    s = all_reduce(torch.sum(x), parallel, axes)
+    return s / (x.numel() * math.prod(parallel.sizes[a] for a in axes))
 
 
 def _f32(x, like=None):
@@ -52,14 +88,31 @@ def constant_schedule(base_lr: float):
     return lambda step: _f32(base_lr, step)
 
 
-def global_norm(tree):
-    leaves = [torch.sum(torch.square(x.float()))
-              for x in tree_leaves_sorted(tree)]
+def global_norm(tree, layout=None):
+    """sqrt of the sum of squares over every leaf, in the reference's
+    leaf order. layout: each leaf's sum of squares summed over the axes
+    it is split on (one all_reduce for each set of axes)."""
+    if layout is None:
+        leaves = [torch.sum(torch.square(x.float()))
+                  for x in tree_leaves_sorted(tree)]
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    pairs = tree_leaves_sorted(tree_map(Packed, tree, layout.specs))
+    leaves = [torch.sum(torch.square(pk.vals[0].float())) for pk in pairs]
+    by_axes = {}
+    for i, pk in enumerate(pairs):
+        axes = split_axes(pk.vals[1], layout.parallel.sizes)
+        if axes:
+            by_axes.setdefault(axes, []).append(i)
+    for axes, idx in by_axes.items():
+        sums = all_reduce(torch.stack([leaves[i] for i in idx]),
+                          layout.parallel, axes)
+        for k, i in enumerate(idx):
+            leaves[i] = sums[k]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    gn = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, layout=None):
+    gn = global_norm(tree, layout)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda x: x.float() * scale, tree), gn
 
@@ -72,14 +125,18 @@ def mixed_precision(inner: Optimizer) -> Optimizer:
         master = tree_map(lambda p: p.float(), params)
         return {"master": master, "inner": inner.init(params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, layout=None):
         g32 = tree_map(lambda g: g.float(), grads)
         new_master, new_inner, metrics = inner.update(
-            g32, state["inner"], state["master"], step)
+            g32, state["inner"], state["master"], step, layout)
         new_params = tree_map(lambda m, p: m.to(p.dtype), new_master, params)
         return new_params, {"master": new_master, "inner": new_inner}, metrics
 
-    return Optimizer(init, update)
+    def state_logical_axes(param_axes):
+        return {"master": param_axes,
+                "inner": inner.state_logical_axes(param_axes)}
+
+    return Optimizer(init, update, state_logical_axes)
 
 
 def adamw(lr_schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -89,8 +146,8 @@ def adamw(lr_schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
-    def update(grads, state, params, step):
-        grads, gn = clip_by_global_norm(grads, clip_norm)
+    def update(grads, state, params, step, layout=None):
+        grads, gn = clip_by_global_norm(grads, clip_norm, layout)
         stepf = _f32(step, step) + 1.0
         lr = lr_schedule(step)
         bc1 = 1.0 - torch.pow(b1, stepf)
@@ -111,7 +168,10 @@ def adamw(lr_schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 {"m": unpack(flat, 1), "v": unpack(flat, 2)},
                 {"grad_norm": gn, "lr": lr})
 
-    return Optimizer(init, update)
+    def state_logical_axes(param_axes):
+        return {"m": param_axes, "v": param_axes}
+
+    return Optimizer(init, update, state_logical_axes)
 
 
 def adafactor(lr_schedule, eps2: float = 1e-30, clip_threshold: float = 1.0,
@@ -132,18 +192,29 @@ def adafactor(lr_schedule, eps2: float = 1e-30, clip_threshold: float = 1.0,
             return {"v": torch.zeros(p.shape, **f32)}
         return {"v": tree_map(st, params)}
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, layout=None):
         stepf = _f32(step, step) + 1.0
         beta2 = 1.0 - torch.pow(stepf, -decay_pow)
         lr = lr_schedule(step)
+        par = None if layout is None else layout.parallel
 
-        def upd(g, v, p):
+        def upd(g, v, p, spec=None):
+            # The mesh axes (of more than one rank) p's dim d is split
+            # on; every dim's for the whole-leaf means.
+            def on(d=None):
+                if spec is None:
+                    return ()
+                return split_axes(spec, par.sizes,
+                                  None if d is None else d % p.ndim)
             g = g.float()
             g2 = torch.square(g) + eps2
             if _factored(p):
-                vr = beta2 * v["vr"] + (1 - beta2) * torch.mean(g2, dim=-1)
-                vc = beta2 * v["vc"] + (1 - beta2) * torch.mean(g2, dim=-2)
-                denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+                vr = beta2 * v["vr"] + (1 - beta2) * _mean(g2, -1, on(-1),
+                                                           par)
+                vc = beta2 * v["vc"] + (1 - beta2) * _mean(g2, -2, on(-2),
+                                                           par)
+                # vr's last dim is p's dim -2.
+                denom = torch.clamp(_mean(vr, -1, on(-2), par, keepdim=True),
                                     min=eps2)
                 u = (g * torch.rsqrt(vr / denom)[..., None]
                      * torch.rsqrt(vc)[..., None, :])
@@ -153,17 +224,28 @@ def adafactor(lr_schedule, eps2: float = 1e-30, clip_threshold: float = 1.0,
                 u = g * torch.rsqrt(vv)
                 new_v = {"v": vv}
             # RMS clip.
-            rms_u = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            rms_u = torch.sqrt(_mean_all(torch.square(u), on(), par) + 1e-30)
             u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
             pf = p.float()
-            scale = torch.clamp(
-                torch.sqrt(torch.mean(torch.square(pf)) + 1e-30), min=1e-3)
+            scale = torch.clamp(torch.sqrt(
+                _mean_all(torch.square(pf), on(), par) + 1e-30), min=1e-3)
             new_p = pf - lr * scale * u - lr * weight_decay * pf
             return Packed(new_p.to(p.dtype), new_v)
 
         # grads' structure drives the map; the state subtree ({"vr","vc"}
-        # or {"v"}) at each grad leaf is passed whole to upd.
-        flat = tree_map(upd, grads, state["v"], params)
+        # or {"v"}) at each grad leaf is passed whole to upd, and so is
+        # its Spec.
+        specs = () if layout is None else (layout.specs,)
+        flat = tree_map(upd, grads, state["v"], params, *specs)
         return unpack(flat, 0), {"v": unpack(flat, 1)}, {"lr": lr}
 
-    return Optimizer(init, update)
+    def state_logical_axes(param_axes):
+        def st(axes):
+            # Mirror the factoring: vr drops the last logical axis, vc the
+            # second-to-last.
+            if len(axes) >= min_dim_factored:
+                return {"vr": axes[:-1], "vc": axes[:-2] + axes[-1:]}
+            return {"v": axes}
+        return {"v": map_axes(st, param_axes)}
+
+    return Optimizer(init, update, state_logical_axes)

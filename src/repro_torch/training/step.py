@@ -9,7 +9,19 @@ on the device.
 The Pallas kernels of the reference have no VJP, and the port's kernels
 no backward, so training runs the plain attention (`attn_impl` "auto",
 "naive" or "chunked") on float weights; `kernels.ops` raises where a
-kernel would be differentiated."""
+kernel would be differentiated.
+
+parallel= (a `make_parallel(mesh, "train")` config; attention-only
+models): the state is this rank's shards (`sharding.shard_tree` by
+`tree_specs(train_state_logical_axes(...))`), the batch the whole
+batch on every rank. Each data rank's loss is its own rows' mean,
+replicated over `model`; autograd differentiates the forward's
+collectives, then each grad leaf is summed over the mesh axes on which
+ranks computed different parts of it (`models.model.grad_sync_axes`)
+and divided by the data ranks' count once, so the grads are those of
+the global mean loss. The loss and metrics are the means over the data
+ranks. Loss, grads and the updated state equal the unsharded step's up
+to the order of the sums."""
 
 from __future__ import annotations
 
@@ -17,8 +29,13 @@ import torch
 
 from repro_torch.models import forward
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.model import data_rows, grad_sync_axes
+from repro_torch.models.params import (abstract_params, param_logical_axes,
+                                       tree_leaves, tree_map)
+from repro_torch.sharding import SCALAR_AXES, all_reduce, tree_specs
+from repro_torch.training.optim import Layout
 from repro_torch.utils import dtype_of
+
 
 
 def cast_floating(tree, dtype):
@@ -41,13 +58,22 @@ def cross_entropy(logits, labels, z_weight: float = 0.0):
 
 
 def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01,
-                 z_weight: float = 0.0):
+                 z_weight: float = 0.0, *, parallel=None):
+    """(params, batch) -> (total, {"loss", "aux_loss"}). parallel: this
+    data rank's rows' loss (see the module docstring)."""
     compute = dtype_of(cfg.compute_dtype)
+    if parallel is not None and parallel.profile != "train":
+        raise ValueError(f"profile {parallel.profile!r}: a train step "
+                         f"takes make_parallel(mesh, 'train')")
 
     def loss_fn(params, batch):
         cparams = cast_floating(params, compute)
-        logits, extras = forward(cparams, batch["inputs"], cfg)
-        loss = cross_entropy(logits, batch["labels"], z_weight)
+        logits, extras = forward(cparams, batch["inputs"], cfg,
+                                 parallel=parallel)
+        labels = batch["labels"]
+        if parallel is not None:
+            labels = labels[data_rows(parallel, labels.shape[0])]
+        loss = cross_entropy(logits, labels, z_weight)
         total = loss + aux_weight * extras["aux_loss"]
         return total, {"loss": loss, "aux_loss": extras["aux_loss"]}
 
@@ -75,14 +101,58 @@ def value_and_grad(loss_fn, params, batch):
     return (total.detach(), metrics), grads
 
 
-def make_train_step(cfg: ModelConfig, optimizer, aux_weight: float = 0.01):
-    loss_fn = make_loss_fn(cfg, aux_weight)
+def sync_grads(grads, axes_tree, parallel):
+    """Each grad leaf summed over its mesh axes (`axes_tree`, a tree of
+    axis tuples with grads' structure), in its own memory layout (a
+    reduction's bits depend on it). Every rank walks the tree in the
+    same order."""
+    def summed(g, axes):
+        if not axes:
+            return g
+        s = all_reduce(g.contiguous(), parallel, axes)
+        return s if s is g else torch.empty_like(g).copy_(s)
+    return tree_map(summed, grads, axes_tree)
+
+
+def make_grad_fn(cfg: ModelConfig, aux_weight: float = 0.01, *,
+                 parallel=None):
+    """(params, batch) -> ((total, metrics), grads). parallel: the
+    grads synced and scaled to the global mean loss's, the total and
+    metrics averaged over the data ranks (outside autograd)."""
+    loss_fn = make_loss_fn(cfg, aux_weight, parallel=parallel)
+
+    def grad_fn(params, batch):
+        (total, metrics), grads = value_and_grad(loss_fn, params, batch)
+        if parallel is None:
+            return (total, metrics), grads
+        dp = parallel.dp_size
+        grads = sync_grads(grads, grad_sync_axes(
+            cfg, parallel, batch["inputs"].shape[1]), parallel)
+        names = sorted(metrics)
+        means = all_reduce(torch.stack([total] + [metrics[k] for k in names]),
+                           parallel, parallel.data_axes)
+        if dp > 1:
+            grads = tree_map(lambda g: g.div_(dp), grads)
+            means = means / dp
+        return ((means[0], {k: means[i + 1] for i, k in enumerate(names)}),
+                grads)
+
+    return grad_fn
+
+
+def make_train_step(cfg: ModelConfig, optimizer, aux_weight: float = 0.01,
+                    *, parallel=None):
+    """(state, batch) -> (new_state, metrics). parallel: the state is
+    this rank's shards, and the update reduces across them (its
+    `Layout`)."""
+    grad_fn = make_grad_fn(cfg, aux_weight, parallel=parallel)
+    layout = () if parallel is None else (Layout(
+        parallel, tree_specs(param_logical_axes(cfg), parallel, cfg)),)
 
     def train_step(state, batch):
-        (total, metrics), grads = value_and_grad(loss_fn, state["params"],
-                                                 batch)
+        (total, metrics), grads = grad_fn(state["params"], batch)
         new_params, new_opt, om = optimizer.update(
-            grads, state["opt"], state["params"], state["step"])
+            grads, state["opt"], state["params"], state["step"], *layout)
         metrics = dict(metrics, total_loss=total, **om)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
@@ -92,11 +162,30 @@ def make_train_step(cfg: ModelConfig, optimizer, aux_weight: float = 0.01):
 
 
 def init_train_state(cfg: ModelConfig, optimizer, seed: int = 0,
-                     device="cuda"):
+                     device="cuda", parallel=None):
     """Params from `init_params(cfg, seed)` on `device` (the card by
-    default), the optimizer's state, step 0."""
+    default), the optimizer's state, step 0. parallel: this rank's
+    shards of that state (`shard_tree` of it by
+    `train_state_logical_axes`), built without the whole state."""
     from repro_torch.models import init_params
-    params = init_params(cfg, seed, device=device)
+    params = init_params(cfg, seed, device=device, parallel=parallel)
     return {"params": params, "opt": optimizer.init(params),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=params["embed"].device)}
+
+
+def train_state_logical_axes(cfg: ModelConfig, optimizer):
+    """The train state's logical sharding axes: the params', the
+    optimizer state's (`optimizer.state_logical_axes`), the step's
+    SCALAR_AXES."""
+    axes = param_logical_axes(cfg)
+    return {"params": axes, "opt": optimizer.state_logical_axes(axes),
+            "step": SCALAR_AXES}
+
+
+def abstract_train_state(cfg: ModelConfig, optimizer):
+    """The train state as meta tensors (params in cfg.param_dtype, the
+    optimizer's state, the step): shapes and dtypes, no storage."""
+    params = abstract_params(cfg)
+    return {"params": params, "opt": optimizer.init(params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}

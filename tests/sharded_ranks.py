@@ -1,7 +1,8 @@
-"""The rank side of tests/test_torch_sharded_exec.py and
-tests/test_torch_sharded_blocks.py: what each gloo rank runs, in a
-module that imports no jax (each spawned rank imports it by name, and
-the reference's outputs reach it as numpy arrays).
+"""The rank side of tests/test_torch_sharded_exec.py,
+tests/test_torch_sharded_blocks.py and tests/test_torch_sharded_train.py:
+what each gloo rank runs, in a module that imports no jax (each spawned
+rank imports it by name, and the reference's outputs reach it as numpy
+arrays).
 
 Every rank writes its results (each check's largest error relative to
 max|reference|, and counters) to rank<r>.json in the run's directory."""
@@ -9,6 +10,7 @@ max|reference|, and counters) to rank<r>.json in the run's directory."""
 import json
 import os
 import pickle
+import shutil
 import time
 
 import numpy as np
@@ -21,6 +23,16 @@ from repro_torch.serving.engine import InferenceEngine
 B, T, STEPS, MAX_SEQ = 4, 12, 16, 32
 LENGTHS = np.array([12, 9, 5, 12])          # left-padded rows
 SPAWN_TIMEOUT = 120
+# The train cases' optimizers: mixed_precision over a constant lr.
+TRAIN_LR = {"adamw": 1e-3, "adafactor": 1e-2}
+TRAIN_STEPS = 3
+
+
+def train_optimizer(M, name):
+    """The same optimizer from either package's optim module M."""
+    sched = M.constant_schedule(TRAIN_LR[name])
+    return M.mixed_precision(M.adamw(sched) if name == "adamw"
+                             else M.adafactor(sched))
 
 
 def drive_engine(eng, prompts, row, toks):
@@ -165,6 +177,131 @@ def _rank_engine_case(case, par, out):
                                         == cfg.d_model)
 
 
+def _leaf_errs(got_tree, want_tree, scale):
+    """Per leaf pair (the torch tree's leaves against the numpy tree's,
+    both in sorted-key order), max|got - want| / scale(want)."""
+    from repro_torch.models.params import tree_leaves_sorted
+    got, want = tree_leaves_sorted(got_tree), tree_leaves_sorted(want_tree)
+    assert len(got) == len(want), (len(got), len(want))
+    out = []
+    for g, w in zip(got, want):
+        g = g.detach().double().numpy()
+        w = np.asarray(w, np.float64)
+        assert g.shape == w.shape, (g.shape, w.shape)
+        out.append(float(np.abs(g - w).max() / scale(w)))
+    return out
+
+
+def _rank_train_case(case, par, out):
+    """The train profile on this rank's shards of the reference's
+    weights: the synced grads of the first batch gathered against the
+    reference's (each leaf's error relative to its max|grad|), then
+    TRAIN_STEPS steps of `make_train_step(parallel=)`: each step's loss
+    and grad_norm (relative errors), the state's local shapes and step,
+    and the gathered params against the reference's (in units of lr)."""
+    from repro_torch.models.params import tree_leaves_sorted
+    from repro_torch.sharding import (gather_tree, local_shape, shard_tree,
+                                      tree_specs)
+    from repro_torch.training import optim as TO
+    from repro_torch.training.step import (abstract_train_state,
+                                           make_grad_fn, make_train_step,
+                                           train_state_logical_axes)
+    cfg, want = case["cfg"], case["want"]
+    opt = train_optimizer(TO, case["opt"])
+    params = from_jax(case["params"], device="cpu")
+    specs = tree_specs(train_state_logical_axes(cfg, opt), par, cfg)
+    state = shard_tree({"params": params, "opt": opt.init(params),
+                        "step": torch.zeros((), dtype=torch.int32)},
+                       specs, par)
+    del params
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in case["batches"]]
+    res = {}
+    (_, m0), grads = make_grad_fn(cfg, parallel=par)(state["params"],
+                                                     batches[0])
+    res["grad"] = max(_leaf_errs(gather_tree(grads, specs["params"], par),
+                                 want["grads"],
+                                 lambda w: max(np.abs(w).max(), 1e-30)))
+    step = make_train_step(cfg, opt, parallel=par)
+    losses, norms = [], []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]) if "grad_norm" in m else None)
+    res["loss"] = max(abs(a / b - 1) for a, b in zip(losses,
+                                                      want["losses"]))
+    if want["grad_norms"] is not None:
+        res["grad_norm"] = max(abs(a / b - 1) for a, b in zip(
+            norms, want["grad_norms"]))
+    full = tree_leaves_sorted(abstract_train_state(cfg, opt))
+    res["local_shapes"] = all(
+        tuple(x.shape) == local_shape(tuple(f.shape), spec, par.sizes)
+        for x, f, spec in zip(tree_leaves_sorted(state), full,
+                              _leaves(specs), strict=True))
+    res["step"] = int(state["step"])
+    lr = TRAIN_LR[case["opt"]]
+    whole = gather_tree(state["params"], specs["params"], par)
+    res["param_lr"] = max(_leaf_errs(whole, want["params"], lambda w: lr))
+    res["port_lr"] = case["port_lr"]
+    out[case["name"]] = res
+
+
+def _rank_levers_case(case, mesh, out):
+    """forward under ParallelConfigs of the train profile and its levers
+    (case["levers"]: ParallelConfig fields), on this rank's shards,
+    against the case's unsharded forward: the serve profile's logits
+    are the whole batch's, the train profile's this data rank's rows."""
+    from repro_torch.models.model import data_rows, forward
+    from repro_torch.models.params import shard_params
+    from repro_torch.sharding import ParallelConfig
+    cfg = case["cfg"]
+    full = from_jax(case["params"], device="cpu")
+    x = torch.from_numpy(case["tokens"])[:, :T]
+    res = {}
+    for i, kw in enumerate(case["levers"]):
+        par = ParallelConfig(mesh=mesh, data_axes=("data",), **kw)
+        want = case["forward"]
+        if par.profile == "train":
+            want = want[data_rows(par, B)]
+        with torch.no_grad():
+            got, _ = forward(shard_params(full, cfg, par), x, cfg,
+                             parallel=par)
+        res[str(i)] = _err(got, want)
+    out[case["name"]] = res
+
+
+def _rank_launcher(case, rank, world, out_dir):
+    """The launcher under torchrun's env:// variables on this rank (the
+    test's own process group destroyed first): `--mesh-shape` for the
+    whole run with a checkpoint every 3 steps, then, with the last
+    checkpoint removed, the same command again (it resumes from step
+    3). Writes whether the two runs' final shards are equal bit for bit,
+    and this rank's coordinates and final shards (numpy, for the test
+    to hold against the checkpoint restored unsharded)."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.params import tree_leaves_sorted, tree_map
+    c = case["launcher"]
+    os.environ.update(MASTER_ADDR="localhost", WORLD_SIZE=str(world),
+                      RANK=str(rank), LOCAL_RANK=str(rank))
+    os.environ["MASTER_PORT"] = str(c["ports"][0])
+    straight = launcher.main(c["args"])
+    if rank == 0:
+        shutil.rmtree(os.path.join(c["ckpt"], f"step_{c['last']:08d}"))
+    # The next run's rendezvous waits for rank 0, so no rank looks for
+    # the latest checkpoint before it is gone.
+    os.environ["MASTER_PORT"] = str(c["ports"][1])
+    resumed = launcher.main(c["args"])
+    coords = np.unravel_index(rank, c["shape"])
+    with open(os.path.join(out_dir, f"launcher_rank{rank}.pkl"), "wb") as f:
+        pickle.dump({
+            "equal": all(torch.equal(a, b) for a, b in zip(
+                tree_leaves_sorted(straight), tree_leaves_sorted(resumed),
+                strict=True)),
+            "step": int(resumed["step"]),
+            "coords": dict(zip(c["axes"], (int(i) for i in coords))),
+            "state": tree_map(lambda t: t.numpy(), resumed)}, f)
+
+
 def _rank_main(rank, world, init_file, out_dir, shape):
     torch.set_num_threads(1)
     with open(os.path.join(out_dir, "cases.pkl"), "rb") as f:
@@ -185,9 +322,18 @@ def _rank_main(rank, world, init_file, out_dir, shape):
         # model) of the same world.
         meshes = {shape: make_mesh(shape, ("data", "model"))}
         for case in cases:
+            if "launcher" in case:
+                continue
             cs = tuple(case.get("mesh", shape))
             if cs not in meshes:
                 meshes[cs] = make_mesh(cs, ("pod", "data", "model"))
+            if "train" in case:
+                _rank_train_case(case, make_parallel(
+                    meshes[cs], "train", **case["train"]), out)
+                continue
+            if "levers" in case:
+                _rank_levers_case(case, meshes[cs], out)
+                continue
             par = make_parallel(meshes[cs], "serve",
                                 moe_mode=case.get("moe_mode", "auto"))
             if "prompts" in case:
@@ -200,6 +346,9 @@ def _rank_main(rank, world, init_file, out_dir, shape):
             json.dump(out, f)
     finally:
         dist.destroy_process_group()
+    for case in cases:
+        if "launcher" in case:
+            _rank_launcher(case, rank, world, out_dir)
 
 
 class Ranks:

@@ -168,8 +168,10 @@ def meshes(tmp_path_factory):
         yi, gemma2,
         _port_case("yi_12q_3kv", "yi_9b", 5, n_heads=12, n_kv_heads=3),
         _engine_case("engine_yi", "yi_9b", 7)])
+    stablelm = _reference_case("stablelm", "stablelm_1_6b", 0)
     mesh22 = Ranks(tmp_path_factory.mktemp("mesh22"), (2, 2), [
-        _reference_case("stablelm", "stablelm_1_6b", 0), yi, gemma2,
+        stablelm, yi, gemma2,
+        dict(stablelm, name="levers", levers=LEVERS),
         _reference_case("stablelm_int8", "stablelm_1_6b", 3, quant=True),
         _port_case("deepseek_padded", "deepseek_coder_33b", 4,
                    tp_pad_heads=8),
@@ -270,13 +272,19 @@ def test_unsupported_blocks_raise_under_parallel(arch):
             call()
 
 
-@pytest.mark.parametrize("kw", [{"profile": "train"},
-                                {"profile": "serve", "seq_shard": True},
-                                {"profile": "serve", "attn_pin": True}])
-def test_train_profile_levers_raise_under_parallel(kw):
-    cfg = reduced_config("stablelm_1_6b")
-    par = ParallelConfig(mesh=_FakeMesh(), data_axes=("data",), **kw)
-    params = init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3.3"):
-        forward(params, torch.zeros((B, 4), dtype=torch.int32), cfg,
-                parallel=par)
+LEVERS = [{"profile": "train"},
+          {"profile": "serve", "seq_shard": True},
+          {"profile": "serve", "attn_pin": True}]
+
+
+@pytest.mark.parametrize("kw", LEVERS)
+def test_train_profile_levers_raise_under_parallel(mesh22, kw):
+    """The train profile and its levers (seq_shard, attn_pin), which
+    raised before the train profile was ported, compute: forward on
+    every rank of mesh (2, 2) (`ParallelConfig(data_axes=("data",),
+    **kw)`) against the reference's unsharded forward, this data rank's
+    rows under the train profile (whose logits stay per data rank), the
+    whole batch under the serve profile."""
+    i = str(LEVERS.index(kw))
+    for r in mesh22:
+        assert r["levers"][i] <= TOL, (kw, r["levers"])

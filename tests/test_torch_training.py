@@ -623,10 +623,12 @@ def test_data_sources_are_pure_functions_of_step():
     assert corpus.batch(0, 2, 16)["inputs"].shape == (2, 16)
 
 
-def test_launcher_trains_and_resumes(tmp_path, capsys):
+def test_launcher_trains_and_resumes(tmp_path, capsys, monkeypatch):
     """--reduced --device cpu: real steps, a checkpoint every 3, and a
     resume from step 3 that ends on the straight run's params bit for
-    bit."""
+    bit. --mesh-shape in a process with no process group and none of
+    torchrun's variables raises a clear error (the sharded launcher's
+    runs are in tests/test_torch_sharded_train.py)."""
     ck = str(tmp_path / "ck")
     args = ["--reduced", "--device", "cpu", "--steps", "6", "--batch", "2",
             "--seq", "8", "--lr", "3e-3"]
@@ -644,5 +646,7 @@ def test_launcher_trains_and_resumes(tmp_path, capsys):
                          "--batch", "2", "--seq", "8",
                          "--optimizer", "adafactor"])
     assert set(ada["opt"]["inner"]) == {"v"}
-    with pytest.raises(NotImplementedError, match="sharded"):
+    for var in launcher.TORCHRUN_VARS:
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         launcher.main(args + ["--mesh-shape", "2,4"])
