@@ -199,10 +199,18 @@ Phases (each prints its results, one line each):
            step's 3 (bit for bit where the arithmetic is the same, else
            the CPU tests' tolerances; ms a step of both, and the
            median of 9 more: the sharded path's fixed cost on one
-           rank), (b) two gloo ranks on the card, reduced gemma2-9b at
-           mesh (1, 2) with seq_shard and at (2, 1): grads, 3 AdamW
-           steps' losses, grad norms and params against the unsharded
-           port on the card, (c) the launcher's --mesh-shape 1,1
+           rank), (a') the same for recurrentgemma-2b and mamba2-2.7b
+           at published width and depth (bit for bit) and for
+           qwen3-moe-235b-a22b at published width, its depth cut to a
+           train state that fits (train_moe_depth), moe_mode ep at
+           capacity_factor = n_experts (the CPU tests' tolerances) and
+           at 1.25 (dropped pairs logged), 3 + 9 steps at B = 8, T = 64
+           under mixed_precision(adafactor), (b) two gloo ranks on the
+           card, reduced gemma2-9b at mesh (1, 2) with seq_shard and at
+           (2, 1), reduced qwen3-moe (ep) and mamba2 at (1, 2) with
+           seq_shard: grads, 3 AdamW steps' losses, grad norms and
+           params against the unsharded port on the card, (c) the
+           launcher's --mesh-shape 1,1
            --steps 2 in a one-rank NCCL world from torchrun's
            variables, then --reduced resumed from a checkpoint against
            a straight run. No kernel launches here (the kernels have
@@ -415,6 +423,19 @@ SHARD_TIMED_STEPS = 9    # (a)'s steps after the compared ones, timed
 SHARD_LOSS_RTOL, SHARD_GN_RTOL, SHARD_GRAD_TOL = 2e-5, 1e-5, 1e-4
 SHARD_PARAM_LR = 0.05
 SHARD_TRAIN_LR = 1e-3       # (b)'s constant AdamW lr
+# (a'): the recurrent and MoE blocks' one-rank steps at B x T under
+# mixed_precision(adafactor(SHARD_BLOCKS_LR)) (the CPU tests' Adafactor
+# lr); where the arithmetic differs (the MoE's dispatch against its dense
+# path), the params within SHARD_ADAFACTOR_PARAM_LR of lr (the CPU
+# tests' Adafactor tolerance).
+SHARD_BLOCKS_B, SHARD_BLOCKS_T, SHARD_BLOCKS_LR = 8, 64, 1e-2
+SHARD_ADAFACTOR_PARAM_LR = 0.005
+# qwen3-moe's depth in (a'): a param's bytes at a step's peak under
+# mixed_precision(adafactor) (the params, their grads and the updated
+# params; the factored second moments are small), and what is kept for
+# the update's temporaries (a few copies of the largest leaf, 3.2 GB)
+# and the activations.
+TRAIN_MOE_BYTES, TRAIN_MOE_SLACK = 12, 16e9
 
 KERNEL_META = {
     "flash_attention": dict(
@@ -550,11 +571,8 @@ def _events():
 # --------------------------------------------------------------------------
 
 def phase_build():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    log(smi[0])
+    card = _card()
+    log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     from repro_torch.kernels import _build
@@ -589,7 +607,7 @@ def phase_build():
             if lib != "int8_matmul":
                 require(spills == "0 bytes spill stores, 0 bytes spill "
                                   "loads", f"ptxas {name}: {spills}")
-    return smi[0]
+    return card
 
 
 def ptxas_usage(nvcc_log, function):
@@ -4293,7 +4311,8 @@ def _train_grads(cfg, args):
 
 def _train_runs(step_fn, state, batches):
     """The batches through step_fn: the final state, each step's (loss,
-    grad_norm) and ms (CUDA events)."""
+    grad_norm; None for an optimizer without one) and ms (CUDA
+    events)."""
     metrics, ms = [], []
     for b in batches:
         e0, e1 = _events()
@@ -4302,8 +4321,96 @@ def _train_runs(step_fn, state, batches):
         e1.record()
         torch.cuda.synchronize()
         ms.append(e0.elapsed_time(e1))
-        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])
+                        if "grad_norm" in m else None))
     return state, metrics, ms
+
+
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _markov_batches(cfg, batch, seq, n):
+    from repro_torch.data import DataIterator, MarkovLMTask
+    it = DataIterator(MarkovLMTask(vocab=cfg.vocab), batch=batch, seq=seq)
+    return [_to_card(next(it)) for _ in range(n)]
+
+
+def _train_one_rank(cfg, opt, batches, timed, aux_weight=0.01,
+                    unsharded=True, grads=False, **kw):
+    """The unsharded step's runs over `batches` and then `timed`, its
+    params kept on the host and its state freed; then the same under
+    make_parallel(mesh, "train", **kw) on a one-rank NCCL mesh (1, 1),
+    from the state cut as it is drawn (the same draws: the same state
+    on one rank). Two train states at full width do not fit the card
+    together with a step's temporaries. unsharded=False: the sharded
+    run alone. Returns a dict of each run's metrics ("got", "want"), ms
+    a step, the median of the timed steps, the params' worst relative
+    and absolute difference and whether they are equal bit for bit,
+    the sharded state's step, the max_memory_allocated of the runs, and
+    the sharded ParallelConfig. grads: also the first batch's grads
+    before the steps ("grad_rel", the worst leaf's max|dg| / max|g|,
+    and "grad_same", bit for bit), the unsharded ones kept on the
+    host."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.sharding import make_parallel
+    from repro_torch.training.step import (init_train_state, make_grad_fn,
+                                           make_train_step)
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if unsharded:
+        step_fn = make_train_step(cfg, opt, aux_weight)
+        state = init_train_state(cfg, opt, seed=0)
+        if grads:
+            want_grads = tree_map(lambda t: t.cpu(), make_grad_fn(
+                cfg, aux_weight)(state["params"], batches[0])[1])
+        state, out["want"], out["want_ms"] = _train_runs(
+            step_fn, state, batches)
+        want_params = tree_map(lambda t: t.cpu(), state["params"])
+        out["want_med"] = statistics.median(
+            _train_runs(step_fn, state, timed)[2])
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    with _nccl_one_rank() as mesh:
+        par = make_parallel(mesh, "train", **kw)
+        sstep = make_train_step(cfg, opt, aux_weight, parallel=par)
+        sstate = init_train_state(cfg, opt, seed=0, parallel=par)
+        if grads and unsharded:
+            g = make_grad_fn(cfg, aux_weight, parallel=par)(
+                sstate["params"], batches[0])[1]
+            out["grad_rel"], _, out["grad_same"] = _leaf_worst(g, want_grads)
+            del g, want_grads
+        sstate, out["got"], out["got_ms"] = _train_runs(
+            sstep, sstate, batches)
+        if unsharded:
+            out["rel"], out["diff"], out["same"] = _leaf_worst(
+                sstate["params"], want_params)
+            del want_params
+        out["step"] = int(sstate["step"])
+        if timed:
+            out["got_med"] = statistics.median(
+                _train_runs(sstep, sstate, timed)[2])
+    del sstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["par"] = par
+    return out
+
+
+def _rels(r, i):
+    """The largest relative difference of metric i (0 loss, 1
+    grad_norm) over the steps of a `_train_one_rank` result; 0 where
+    the optimizer reports none."""
+    return max((abs(g[i] / w[i] - 1) for g, w in zip(r["got"], r["want"])
+                if g[i] is not None), default=0.0)
 
 
 def _train_sharded_one_rank(cfg, args):
@@ -4311,45 +4418,19 @@ def _train_sharded_one_rank(cfg, args):
     stablelm-1.6b, the launcher's optimizer, SHARD_TRAIN_STEPS steps at
     B = 8, T = 64 under make_parallel(mesh, "train") (seq_shard on: a
     no-op over one rank) against the unsharded step's on the same
-    batches. The unsharded run's losses, grad norms and params are kept
-    on the host and its state freed before the sharded one is built
-    (two full-width train states, 26 GB each, do not fit with the
-    steps' temporaries)."""
-    from repro_torch.data import DataIterator, MarkovLMTask
+    batches (`_train_one_rank`; two full-width train states, 26 GB
+    each, do not fit with the steps' temporaries)."""
     from repro_torch.launch import train as launcher
-    from repro_torch.models.params import tree_map
-    from repro_torch.sharding import make_parallel
-    from repro_torch.training.step import init_train_state
-    it = DataIterator(MarkovLMTask(vocab=cfg.vocab), batch=args.batch,
-                      seq=args.seq)
-    batches = [_to_card(next(it)) for _ in range(SHARD_TRAIN_STEPS)]
-    timed = [_to_card(next(it)) for _ in range(SHARD_TIMED_STEPS)]
-    _, opt, step_fn = launcher.build(args)
-    state, want, want_ms = _train_runs(step_fn, init_train_state(
-        cfg, opt, seed=0), batches)
-    want_params = tree_map(lambda t: t.cpu(), state["params"])
-    want_med = statistics.median(_train_runs(step_fn, state, timed)[2])
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
-    with _nccl_one_rank() as mesh:
-        par = make_parallel(mesh, "train")
-        _, _, sstep = launcher.build(args, par)
-        # Each leaf drawn whole and cut as it is drawn (the launcher's
-        # way): the unsharded draws, so the same state on one rank.
-        sstate, got, got_ms = _train_runs(sstep, init_train_state(
-            cfg, opt, seed=0, parallel=par), batches)
-        rel, diff, same = _leaf_worst(sstate["params"], want_params)
-        step = int(sstate["step"])
-        got_med = statistics.median(_train_runs(sstep, sstate, timed)[2])
-    del sstate, want_params
-    gc.collect()
-    torch.cuda.empty_cache()
-    loss_rel = max(abs(g[0] / w[0] - 1) for g, w in zip(got, want))
-    gn_rel = max(abs(g[1] / w[1] - 1) for g, w in zip(got, want))
-    exact = same and got == want
+    batches = _markov_batches(cfg, args.batch, args.seq,
+                              SHARD_TRAIN_STEPS + SHARD_TIMED_STEPS)
+    _, opt, _ = launcher.build(args)
+    r = _train_one_rank(cfg, opt, batches[:SHARD_TRAIN_STEPS],
+                        batches[SHARD_TRAIN_STEPS:])
+    got, want = r["got"], r["want"]
+    loss_rel, gn_rel = _rels(r, 0), _rels(r, 1)
+    exact = r["same"] and got == want
     log(f"train sharded (a): nccl mesh (1, 1), {cfg.name} full width, "
-        f"make_parallel(mesh, 'train') seq_shard={par.seq_shard}, B="
+        f"make_parallel(mesh, 'train') seq_shard={r['par'].seq_shard}, B="
         f"{args.batch} T={args.seq}, {SHARD_TRAIN_STEPS} steps against the "
         f"unsharded step's: losses {[g[0] for g in got]} vs "
         f"{[w[0] for w in want]}, grad norms {[g[1] for g in got]} vs "
@@ -4357,26 +4438,150 @@ def _train_sharded_one_rank(cfg, args):
         f"params) {exact}" + ("" if exact else
         f"; by the CPU tolerances: loss rel {loss_rel:.3e} (tol "
         f"{SHARD_LOSS_RTOL}), grad_norm rel {gn_rel:.3e} (tol "
-        f"{SHARD_GN_RTOL}), params max|dp| {diff:.3e} (tol "
+        f"{SHARD_GN_RTOL}), params max|dp| {r['diff']:.3e} (tol "
         f"{SHARD_PARAM_LR * args.lr:.1e})") + f"; ms a step (CUDA events) "
-        f"sharded {[round(x, 4) for x in got_ms]}, unsharded "
-        f"{[round(x, 4) for x in want_ms]}; median of the "
-        f"{SHARD_TIMED_STEPS} steps after those, sharded {got_med:.4f} "
-        f"unsharded {want_med:.4f} ms, ratio {got_med / want_med:.4f} (the "
-        f"sharded path's fixed cost on one rank, not a tensor-parallel "
-        f"speed)")
-    require(step == SHARD_TRAIN_STEPS, f"train sharded (a): step {step}")
+        f"sharded {[round(x, 4) for x in r['got_ms']]}, unsharded "
+        f"{[round(x, 4) for x in r['want_ms']]}; median of the "
+        f"{SHARD_TIMED_STEPS} steps after those, sharded "
+        f"{r['got_med']:.4f} unsharded {r['want_med']:.4f} ms, ratio "
+        f"{r['got_med'] / r['want_med']:.4f} (the sharded path's fixed "
+        f"cost on one rank, not a tensor-parallel speed); {_card()}")
+    require(r["step"] == SHARD_TRAIN_STEPS,
+            f"train sharded (a): step {r['step']}")
     require(exact or (loss_rel <= SHARD_LOSS_RTOL and gn_rel <= SHARD_GN_RTOL
-                      and diff <= SHARD_PARAM_LR * args.lr),
+                      and r["diff"] <= SHARD_PARAM_LR * args.lr),
             "train sharded (a): the one-rank sharded steps differ")
 
 
+def train_moe_depth(cfg):
+    """(layers, bytes of the embedding, head and final norm, bytes a
+    layer) at the peak of a train step under mixed_precision(adafactor)
+    (TRAIN_MOE_BYTES a param): the most layers of cfg that fit
+    PEAK_LIMIT_BYTES with TRAIN_MOE_SLACK kept for the update's
+    temporaries and the activations."""
+    fixed = dataclasses.replace(cfg, n_layers=0).param_count() \
+        * TRAIN_MOE_BYTES
+    layer = cfg._block_params("moe") * TRAIN_MOE_BYTES
+    return int((PEAK_LIMIT_BYTES - fixed - TRAIN_MOE_SLACK) // layer), \
+        fixed, layer
+
+
+def _log_one_rank(label, cfg, r, exact_needed):
+    """(a')'s line for one `_train_one_rank` result, and its checks:
+    bit for bit, or (exact_needed False) the CPU tests' tolerances for
+    Adafactor."""
+    got, want = r["got"], r["want"]
+    exact = r["same"] and got == want
+    loss_rel = _rels(r, 0)
+    lr_err = r["diff"] / SHARD_BLOCKS_LR
+    grad_txt = "" if "grad_rel" not in r else (
+        f"first batch's grads bit for bit {r['grad_same']}, worst leaf "
+        f"max|dg|/max|g| {r['grad_rel']:.3e} (tol {SHARD_GRAD_TOL}); ")
+    log(f"train sharded (a') {label}: nccl mesh (1, 1), {cfg.name} "
+        f"({cfg.n_layers} layers, d {cfg.d_model}), make_parallel(mesh, "
+        f"'train') seq_shard={r['par'].seq_shard} moe_mode="
+        f"{r['par'].moe_mode}, mixed_precision(adafactor({SHARD_BLOCKS_LR})),"
+        f" B={SHARD_BLOCKS_B} T={SHARD_BLOCKS_T}, {SHARD_TRAIN_STEPS} steps "
+        f"against the unsharded step's: losses {[g[0] for g in got]} vs "
+        f"{[w[0] for w in want]}; bit for bit (losses, params) {exact}; "
+        f"{grad_txt}loss rel {loss_rel:.3e}, params max|dp| {r['diff']:.3e} "
+        f"({lr_err:.3e} lr; max|dp|/max|p| {r['rel']:.3e}); ms a step "
+        f"(CUDA events) sharded {[round(x, 4) for x in r['got_ms']]}, "
+        f"unsharded {[round(x, 4) for x in r['want_ms']]}; median of the "
+        f"{SHARD_TIMED_STEPS} steps after those, sharded "
+        f"{r['got_med']:.4f} unsharded {r['want_med']:.4f} ms, ratio "
+        f"{r['got_med'] / r['want_med']:.4f}; max_memory_allocated "
+        f"{r['peak'] / 1e9:.3f} GB; {_card()}")
+    require(r["step"] == SHARD_TRAIN_STEPS,
+            f"train sharded (a') {label}: step {r['step']}")
+    if exact_needed:
+        require(exact, f"train sharded (a') {label}: the one-rank sharded "
+                       f"steps are not the unsharded ones bit for bit")
+    else:
+        require(loss_rel <= SHARD_LOSS_RTOL
+                and lr_err <= SHARD_ADAFACTOR_PARAM_LR
+                and r.get("grad_rel", 0.0) <= SHARD_GRAD_TOL,
+                f"train sharded (a') {label}: the one-rank sharded steps "
+                f"differ")
+
+
+def _train_sharded_blocks():
+    """(a') The train profile of the recurrent and MoE blocks on a
+    one-rank NCCL mesh (1, 1), against the unsharded step on the same
+    batches (SHARD_TRAIN_STEPS compared, SHARD_TIMED_STEPS more timed),
+    under mixed_precision(adafactor): AdamW's out-of-place update holds
+    the old and the new state, the grads and their clipped copy at once
+    (32 B a param: 95 GB for recurrentgemma-2b's 2.96 B params; computed,
+    not measured).
+    recurrentgemma-2b and mamba2-2.7b at published width and depth,
+    seq_shard on, bit for bit; qwen3-moe-235b-a22b at published width,
+    its depth cut by `train_moe_depth`, moe_mode ep: at capacity_factor
+    = n_experts (nothing drops: the sharded dispatch computes the dense
+    FFN, summed in another order) within the CPU tests' tolerances, the
+    first batch's grads too (Adafactor reports no grad_norm, and its
+    update hides a grad leaf scaled by a constant), at
+    the config's 1.25 alone, its dropped pairs logged a step and its
+    loss finite. aux_weight 1.0 for the MoE."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import optim as TO
+    opt = TO.mixed_precision(TO.adafactor(TO.constant_schedule(
+        SHARD_BLOCKS_LR)))
+    n = SHARD_TRAIN_STEPS + SHARD_TIMED_STEPS
+    for arch in ("recurrentgemma_2b", "mamba2_2_7b"):
+        cfg = get_config(arch).with_runtime(param_dtype="float32")
+        b = _markov_batches(cfg, SHARD_BLOCKS_B, SHARD_BLOCKS_T, n)
+        r = _train_one_rank(cfg, opt, b[:SHARD_TRAIN_STEPS],
+                            b[SHARD_TRAIN_STEPS:])
+        _log_one_rank(arch, cfg, r, True)
+    full = get_config(MOE_ARCH).with_runtime(param_dtype="float32")
+    depth, fixed, layer = train_moe_depth(full)
+    log(f"train sharded (a') {MOE_ARCH}: depth cut to {depth} of "
+        f"{full.n_layers} layers (train_moe_depth: {fixed / 1e9:.3f} GB "
+        f"for the embedding, head and norm and {layer / 1e9:.3f} GB a "
+        f"layer at {TRAIN_MOE_BYTES} B a param, {TRAIN_MOE_SLACK / 1e9:.0f}"
+        f" GB kept, under {PEAK_LIMIT_BYTES / 1e9:.0f} GB)")
+    require(depth >= 1, f"train sharded (a'): {MOE_ARCH} fits no layer")
+    cut = dataclasses.replace(full, n_layers=depth)
+    ample = dataclasses.replace(cut, moe=dataclasses.replace(
+        cut.moe, capacity_factor=float(cut.moe.n_experts)))
+    b = _markov_batches(cut, SHARD_BLOCKS_B, SHARD_BLOCKS_T, n)
+    r = _train_one_rank(ample, opt, b[:SHARD_TRAIN_STEPS],
+                        b[SHARD_TRAIN_STEPS:], aux_weight=1.0, grads=True,
+                        moe_mode="ep")
+    _log_one_rank(f"{MOE_ARCH} capacity_factor {ample.moe.capacity_factor}",
+                  ample, r, False)
+    with _counting_drops() as drops:
+        r = _train_one_rank(cut, opt, b[:SHARD_TRAIN_STEPS], [],
+                            aux_weight=1.0, unsharded=False, moe_mode="ep")
+    losses = [g[0] for g in r["got"]]
+    log(f"train sharded (a') {MOE_ARCH} capacity_factor "
+        f"{cut.moe.capacity_factor}, sharded alone: losses {losses}, "
+        f"dropped (token, choice) pairs a layer a step {drops} of "
+        f"{SHARD_BLOCKS_B * SHARD_BLOCKS_T * cut.moe.top_k}; ms a step "
+        f"{[round(x, 4) for x in r['got_ms']]}; {_card()}")
+    require(all(np.isfinite(losses)) and r["step"] == SHARD_TRAIN_STEPS,
+            f"train sharded (a') {MOE_ARCH} at capacity_factor "
+            f"{cut.moe.capacity_factor}: losses {losses}")
+
+
+# (b)'s cases: (arch, MoE aux_weight, [(mesh shape with world for -1,
+# make_parallel levers)]).
+TRAIN_GLOO_CASES = (
+    ("gemma2_9b", 0.01, [((1, -1), {"seq_shard": True}), ((-1, 1), {})]),
+    ("qwen3_moe_235b", 1.0, [((1, -1), {"seq_shard": True,
+                                        "moe_mode": "ep"})]),
+    ("mamba2_2_7b", 0.01, [((1, -1), {"seq_shard": True})]))
+
+
 def _train_gloo_rank(rank, world, port, out_dir):
-    """(b) One of two gloo ranks on the one card: reduced gemma2-9b
-    (tied table, softcaps, local / global, sandwich norms) at mesh
-    (1, 2) with seq_shard and at (2, 1): the first batch's synced grads
-    gathered, SHARD_TRAIN_STEPS AdamW steps' losses, grad norms and
-    gathered params, against the unsharded port's on the card."""
+    """(b) One of two gloo ranks on the one card: each of
+    TRAIN_GLOO_CASES reduced (gemma2-9b: tied table, softcaps, local /
+    global, sandwich norms; qwen3-moe in moe_mode ep with the aux term
+    at weight 1.0, at its reduced capacity_factor, where no pair drops;
+    mamba2: the SSD heads, the gated norm's sum, B / C partial grads) at
+    its meshes: the first batch's synced grads gathered,
+    SHARD_TRAIN_STEPS AdamW steps' losses, grad norms and gathered
+    params, against the unsharded port's on the card."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as dist
     from repro_torch.configs import reduced_config
@@ -4393,49 +4598,52 @@ def _train_gloo_rank(rank, world, port, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     res = {}
-    try:
-        cfg = reduced_config("gemma2_9b").with_runtime(param_dtype="float32")
-        opt = TO.mixed_precision(TO.adamw(TO.constant_schedule(
-            SHARD_TRAIN_LR)))
-        batches = [_to_card(MarkovLMTask(vocab=cfg.vocab).batch(
-            i, 8, 16)) for i in range(SHARD_TRAIN_STEPS)]
-        full = init_train_state(cfg, opt, seed=0, device="cuda")
-        _, want_g = make_grad_fn(cfg)(full["params"], batches[0])
-        want, want_m = full, []
-        step = make_train_step(cfg, opt)
-        for b in batches:
-            want, m = step(want, b)
-            want_m.append((float(m["loss"]), float(m["grad_norm"])))
 
-        def worst(got, ref, scale):
-            return max(float((g - r).abs().max()) / scale(r) for g, r in zip(
-                tree_leaves_sorted(got), tree_leaves_sorted(ref),
-                strict=True))
-        for shape, kw in (((1, world), {"seq_shard": True}),
-                          ((world, 1), {})):
-            par = make_parallel(make_mesh(shape, ("data", "model")),
-                                "train", **kw)
-            specs = tree_specs(train_state_logical_axes(cfg, opt), par, cfg)
-            state = shard_tree(full, specs, par)
-            _, g = make_grad_fn(cfg, parallel=par)(state["params"],
-                                                   batches[0])
-            out = {"seq_shard": par.seq_shard, "grad": worst(
-                gather_tree(g, specs["params"], par), want_g,
-                lambda r: max(float(r.abs().max()), 1e-30))}
-            sstep = make_train_step(cfg, opt, parallel=par)
-            got_m = []
+    def worst(got, ref, scale):
+        return max(float((g - r).abs().max()) / scale(r) for g, r in zip(
+            tree_leaves_sorted(got), tree_leaves_sorted(ref), strict=True))
+    try:
+        for arch, aux_weight, meshes in TRAIN_GLOO_CASES:
+            cfg = reduced_config(arch).with_runtime(param_dtype="float32")
+            opt = TO.mixed_precision(TO.adamw(TO.constant_schedule(
+                SHARD_TRAIN_LR)))
+            batches = [_to_card(MarkovLMTask(vocab=cfg.vocab).batch(
+                i, 8, 16)) for i in range(SHARD_TRAIN_STEPS)]
+            full = init_train_state(cfg, opt, seed=0, device="cuda")
+            _, want_g = make_grad_fn(cfg, aux_weight)(full["params"],
+                                                      batches[0])
+            want, want_m = full, []
+            step = make_train_step(cfg, opt, aux_weight)
             for b in batches:
-                state, m = sstep(state, b)
-                got_m.append((float(m["loss"]), float(m["grad_norm"])))
-            out["loss"] = max(abs(a[0] / b[0] - 1)
-                              for a, b in zip(got_m, want_m))
-            out["grad_norm"] = max(abs(a[1] / b[1] - 1)
-                                   for a, b in zip(got_m, want_m))
-            out["param_lr"] = worst(gather_tree(
-                state["params"], specs["params"], par), want["params"],
-                lambda r: SHARD_TRAIN_LR)
-            out["step"] = int(state["step"])
-            res[str(shape)] = out
+                want, m = step(want, b)
+                want_m.append((float(m["loss"]), float(m["grad_norm"])))
+            for shape, kw in meshes:
+                shape = tuple(world if n == -1 else n for n in shape)
+                par = make_parallel(make_mesh(shape, ("data", "model")),
+                                    "train", **kw)
+                specs = tree_specs(train_state_logical_axes(cfg, opt), par,
+                                   cfg)
+                state = shard_tree(full, specs, par)
+                _, g = make_grad_fn(cfg, aux_weight, parallel=par)(
+                    state["params"], batches[0])
+                out = {"seq_shard": par.seq_shard, "grad": worst(
+                    gather_tree(g, specs["params"], par), want_g,
+                    lambda r: max(float(r.abs().max()), 1e-30))}
+                sstep = make_train_step(cfg, opt, aux_weight, parallel=par)
+                got_m = []
+                for b in batches:
+                    state, m = sstep(state, b)
+                    got_m.append((float(m["loss"]), float(m["grad_norm"])))
+                out["loss"] = max(abs(a[0] / b[0] - 1)
+                                  for a, b in zip(got_m, want_m))
+                out["grad_norm"] = max(abs(a[1] / b[1] - 1)
+                                       for a, b in zip(got_m, want_m))
+                out["param_lr"] = worst(gather_tree(
+                    state["params"], specs["params"], par), want["params"],
+                    lambda r: SHARD_TRAIN_LR)
+                out["step"] = int(state["step"])
+                res[f"{arch} {shape}"] = out
+            del full, want, state
         torch.cuda.synchronize()
     finally:
         dist.destroy_process_group()
@@ -4468,10 +4676,13 @@ def _train_two_gloo_ranks():
         with open(Path(out_dir) / f"train_rank{rank}.json") as f:
             res = json.load(f)
         log(f"train sharded (b) rank {rank}: two gloo ranks on one card, "
-            f"gemma2_9b reduced B=8 T=16 vs the unsharded port on the card "
+            f"{', '.join(c[0] for c in TRAIN_GLOO_CASES)} reduced B=8 T=16 "
+            f"vs the unsharded port on the card "
             f"(tols: loss {SHARD_LOSS_RTOL}, grad_norm {SHARD_GN_RTOL}, "
             f"grads {SHARD_GRAD_TOL}, params {SHARD_PARAM_LR} lr): "
             f"{json.dumps(res)}")
+        require(len(res) == sum(len(c[2]) for c in TRAIN_GLOO_CASES),
+                f"train sharded (b) rank {rank}: {sorted(res)}")
         for mesh, r in res.items():
             require(r["step"] == SHARD_TRAIN_STEPS
                     and r["loss"] <= SHARD_LOSS_RTOL
@@ -4573,6 +4784,9 @@ def phase_train():
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     _train_sharded_one_rank(cfg, args)
+    t1 = time.perf_counter()
+    _train_sharded_blocks()
+    log(f"train sharded (a'): {time.perf_counter() - t1:.1f} s")
     _train_two_gloo_ranks()
     _train_launcher_one_rank()
     log(f"train sharded (a)-(c): {time.perf_counter() - t0:.1f} s")

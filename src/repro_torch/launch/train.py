@@ -8,8 +8,8 @@ Real optimizer steps (AdamW or Adafactor under `mixed_precision`, a
 cosine schedule), Markov or byte data, a checkpoint every
 ``--save-interval`` steps and resume from the latest committed one.
 
-``--mesh-shape`` trains sharded (the train profile, attention-only
-models) on the ranks of a torch.distributed world: the launcher's own
+``--mesh-shape`` trains sharded (the train profile, any ``--arch``) on
+the ranks of a torch.distributed world: the launcher's own
 process group where one is initialized, else one built from torchrun's
 ``env://`` variables (nccl on the card, each rank on its LOCAL_RANK's
 device; gloo with ``--device cpu``), e.g. on four CPU ranks:

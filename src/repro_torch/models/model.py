@@ -48,7 +48,6 @@ param_logical_axes = pmod.param_logical_axes
 abstract_params = pmod.abstract_params
 
 RECURRENT_KINDS = ("rglru", "ssd")
-ATTN_ONLY_KINDS = ("attn", "local", "global")
 
 
 # --------------------------------------------------------------------------
@@ -238,29 +237,6 @@ def _apply_group(cfg: ModelConfig, ps, x, positions, cs, cache_pos,
     return x, aux
 
 
-def check_parallel(cfg: ModelConfig, parallel):
-    """Raise for what the sharded path does not compute yet: the MoE,
-    RG-LRU and SSD blocks under the train profile or its levers
-    (seq_shard, attn_pin). The serve profile computes every block kind;
-    the train profile, seq_shard (seq_mode "full" or "carry") and
-    attn_pin compute the attention-only patterns (attn / local /
-    global). attn_pin is accepted and changes nothing: it pins q/k/v
-    head-sharded in the reference (`src/repro/models/layers.py`), which
-    is how the port's attention always runs (each rank its own heads,
-    by hand)."""
-    levers = (parallel.profile != "serve" or parallel.seq_shard
-              or parallel.attn_pin)
-    kinds = set(cfg.pattern) | set(cfg.tail_kinds)
-    other = sorted(kinds - set(ATTN_ONLY_KINDS))
-    if levers and other:
-        raise NotImplementedError(
-            f"profile={parallel.profile!r} seq_shard={parallel.seq_shard} "
-            f"attn_pin={parallel.attn_pin} with {other} blocks: the train "
-            f"profile and its levers run the attention-only models; the "
-            f"MoE, RG-LRU and SSD blocks under them are ROADMAP queue 1 "
-            f"item 3.3")
-
-
 def data_rows(parallel, batch: int):
     """This rank's rows of a batch of `batch` (a slice) where it splits
     evenly over the data axes; None where every data rank computes
@@ -281,11 +257,16 @@ def residual_t_sharded(parallel, T: int) -> bool:
 
 # The parameters replicated over model, by how each model rank uses
 # them (`grad_sync_axes`): on its own part (its heads' q / k norms; its
-# q group's kv heads where kv_heads is not split), or whole, or (the
-# scan groups' block norms) on its block of T under seq_shard "full"
-# and whole otherwise.
-_MODEL_PARTIAL = ("q_norm", "k_norm", "wk", "wv")
-_MODEL_WHOLE = ("final_norm",)
+# q group's kv heads where kv_heads is not split; the SSD's B / C
+# projections and convs, of which each rank reads its heads' groups),
+# or whole (the final norm; the MoE router, whose probabilities feed
+# the load-balance loss every model rank repeats and, through the
+# dispatch's gate values, whose grads `moe_ffn_sharded` sums over
+# model), or (the scan groups' block norms) on its block of T under
+# seq_shard "full" and whole otherwise.
+_MODEL_PARTIAL = ("q_norm", "k_norm", "wk", "wv", "w_B", "w_C", "conv_B",
+                  "conv_C")
+_MODEL_WHOLE = ("final_norm", "router")
 _SEQ_NORMS = ("ln1", "ln2", "post_attn_norm", "post_ffn_norm")
 
 
@@ -301,7 +282,8 @@ def grad_sync_axes(cfg: ModelConfig, parallel, T: int):
     - `model` for a leaf replicated over model that each model rank
       uses on its own part: q_norm / k_norm (each rank's heads), wk /
       wv where n_kv_heads does not divide the model axis (each rank's
-      q group's kv heads), and the scan groups' block norms under
+      q group's kv heads), the SSD's w_B / w_C / conv_B / conv_C (each
+      rank's heads' groups), and the scan groups' block norms under
       seq_shard "full" (each rank's block of T).
 
     A leaf whose grad every model rank holds whole is not summed over
@@ -406,12 +388,15 @@ def forward(params, inputs, cfg: ModelConfig, *, parallel=None, cache=None,
     blocks get a ParallelConfig whose `data_axes` is empty (the axes the
     activations' batch is split over: the sharded MoE reads them).
     Serve profile: every rank returns the whole batch's logits
-    (all-gathered over the model and data axes). Train profile
-    (attention-only patterns; `check_parallel`): B must divide the data
-    axes, and each data rank returns its own rows' logits (gathered over
-    model), so its loss is its rows' and autograd differentiates every
-    collective (`sharding.gather_to_split` ...); each weight is gathered
-    over the FSDP axes where it is used.
+    (all-gathered over the model and data axes). Train profile (every
+    block kind): B must divide the data axes, and each data rank returns
+    its own rows' logits (gathered over model), so its loss is its rows'
+    and autograd differentiates every collective
+    (`sharding.gather_to_split` ...); each weight is gathered over the
+    FSDP axes where it is used. Its aux_loss is each data rank's own
+    (the MoE's load-balance loss over its rows, over the whole batch in
+    moe_mode ep2d / tp2d), which the train step averages over the data
+    ranks.
     parallel.seq_shard (Megatron sequence parallelism, the reference's
     T-sharded residual): between the blocks each model rank holds its
     block of T. seq_mode "full": every block takes and returns the
@@ -439,7 +424,6 @@ def forward(params, inputs, cfg: ModelConfig, *, parallel=None, cache=None,
     train = parallel is not None and parallel.profile == "train"
     seq = mode = False
     if parallel is not None:
-        check_parallel(cfg, parallel)
         B = inputs.shape[0]
         rows = data_rows(parallel, B)
         if train and rows is None:
@@ -593,8 +577,6 @@ def prefill(params, inputs, cfg: ModelConfig, max_seq: int, *,
     shard)."""
     B, T = inputs.shape[0], inputs.shape[1]
     if cache is None:
-        if parallel is not None:
-            check_parallel(cfg, parallel)
         cache = init_cache(cfg, B, max_seq, device=inputs.device,
                            parallel=parallel)
     else:

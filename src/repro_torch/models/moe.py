@@ -58,9 +58,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import act_fn
-from repro_torch.sharding import (Spec, all_gather, all_reduce,
-                                  moe_mode_for, reduce_scatter)
+from repro_torch.models.layers import _autograd_path, _fsdp, act_fn
+from repro_torch.sharding import (Spec, all_reduce, copy_to_split,
+                                  gather_to_shared, gather_to_split,
+                                  moe_mode_for, scatter_to_split,
+                                  sum_to_shared)
 
 
 def router_topk(p, x2d, cfg: ModelConfig):
@@ -201,25 +203,49 @@ def moe_ffn_sharded(p, x, cfg: ModelConfig, parallel):
     """(B_loc, T, d) -> ((B_loc, T, d), aux_loss) on this rank's expert
     shards: x holds this rank's batch rows (split over
     `parallel.data_axes`, or the whole batch where that is empty),
-    replicated over the model axis."""
+    replicated over the model axis (under seq_shard "full" its block of
+    T, gathered here: every model rank routes every token, as the
+    reference's shard_map takes x whole over model; the output goes
+    back as this rank's block of T).
+
+    Every collective has a backward (`sharding.gather_to_split` ...);
+    only the serve profile's closing sum is the in-place all_reduce.
+    Every model rank runs the router on the same tokens, and its
+    probabilities feed two things: the dispatch to this rank's experts (or ff slice), which is
+    different work on each rank, and the load-balance loss, which every
+    rank repeats. Only the dispatch's inputs (the buffer's token rows,
+    the gate values) get a backward that sums over model; the router's
+    and the aux loss's grads stay each rank's own (whole on every
+    rank), where a sum at the block's entry would scale them by tp.
+    The aux loss is each data rank's own under the train profile (the
+    train step's mean over the data ranks averages it, and its metric);
+    otherwise it is averaged over the batch axes here."""
     m = cfg.moe
     tp, fsdp = parallel.tp_axis, parallel.fsdp_axes
     data = parallel.data_axes
     mode = moe_mode_for(cfg, parallel)
     twod = mode.endswith("2d")
+    # The serve profile's engine graphs capture its in-place all_reduce.
+    summed = sum_to_shared if _autograd_path(parallel) else all_reduce
     gate, up, down = (_float_leaf(p, k) for k in ("w_gate", "w_up",
                                                   "w_down"))
+    router = {"router": _fsdp(p["router"], parallel, 0)}
+    if parallel.seq_shard:
+        x = gather_to_shared(x, parallel, tp, 1)
     if twod:
         # Move the (small) activations, not the weights.
-        x = all_gather(x, parallel, data, 0)
+        x = gather_to_split(x, parallel, data, 0)
     else:
         # This layer's experts whole over the FSDP axes (ZeRO-3).
-        gate, up = (all_gather(w, parallel, fsdp, 1) for w in (gate, up))
-        down = all_gather(down, parallel, fsdp, 2)
+        gate, up = (gather_to_split(w, parallel, fsdp, 1)
+                    for w in (gate, up))
+        down = gather_to_split(down, parallel, fsdp, 2)
     B_loc, T, d = x.shape
     T_tok = B_loc * T
     x2 = x.reshape(T_tok, d)
-    vals, idx, probs = router_topk(p, x2, cfg)
+    vals, idx, probs = router_topk(router, x2, cfg)
+    # The dispatch's inputs: each model rank's own work.
+    xd, vd = (copy_to_split(t, parallel, tp) for t in (x2, vals))
     if mode.startswith("ep"):
         E_loc = m.n_experts // parallel.tp_size
         off = parallel.index((tp,)) * E_loc
@@ -227,9 +253,9 @@ def moe_ffn_sharded(p, x, cfg: ModelConfig, parallel):
         E_loc, off = m.n_experts, 0
     C = capacity(T_tok, m)
     slot = _dispatch_slots(idx, E_loc, off, C)
-    idx_buf, gate_buf = _dispatch_bufs(slot, vals, T_tok, E_loc * C)
+    idx_buf, gate_buf = _dispatch_bufs(slot, vd, T_tok, E_loc * C)
     dt = torch.promote_types(x.dtype, gate.dtype)
-    buf = x2.to(dt)[idx_buf.long()].reshape(E_loc, C, d)
+    buf = xd.to(dt)[idx_buf.long()].reshape(E_loc, C, d)
     act = act_fn(cfg.mlp_act)
     h = act(torch.bmm(buf, gate.to(dt))) * torch.bmm(buf, up.to(dt))
     y = torch.bmm(h, down.to(dt)).reshape(E_loc * C, d)
@@ -245,23 +271,27 @@ def moe_ffn_sharded(p, x, cfg: ModelConfig, parallel):
     if twod:
         # The ff partial sums: scattered back over the batch axes that
         # hold ff shards, summed over the rest of the FSDP axes; a batch
-        # axis without an ff shard gives its rows back.
+        # axis without an ff shard gives its rows back (every rank of it
+        # computed the same partial sums: each keeps its own rows' grad).
         for a in data:
             if a in fsdp:
-                out = reduce_scatter(out, parallel, a, 0)
+                out = scatter_to_split(out, parallel, a, 0)
             else:
                 n = out.shape[0] // parallel.sizes[a]
                 i = parallel.index((a,))
                 out = out[i * n:(i + 1) * n]
-        out = all_reduce(out.contiguous(), parallel,
-                         tuple(a for a in fsdp if a not in data))
-    out = all_reduce(out, parallel, tp)
-    # The aux loss: each shard's tokens' (the same on every model rank),
-    # averaged over the batch axes.
+        rest = tuple(a for a in fsdp if a not in data)
+        if rest:
+            out = summed(out, parallel, rest)
+    if parallel.seq_shard:
+        out = scatter_to_split(out, parallel, tp, 1)
+    else:
+        out = summed(out, parallel, tp)
+    # The aux loss: each shard's tokens' (the same on every model rank).
     comb = torch.zeros((T_tok, m.n_experts), dtype=torch.float32,
                        device=x.device).scatter_add(1, idx, vals)
     aux = _load_balance_loss(comb, probs, m.n_experts)
-    if data:
+    if data and parallel.profile != "train":
         n = math.prod(parallel.sizes[a] for a in data)
         aux = all_reduce(aux.reshape(1), parallel, data)[0] / n
     return out.to(x.dtype), aux

@@ -24,8 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _proj, act_fn, mlp, rms_norm
-from repro_torch.sharding import all_gather
+from repro_torch.models.layers import (_col_in, _fsdp, _proj, _row_proj,
+                                       act_fn, mlp, rms_norm)
+from repro_torch.sharding import gather_to_split
 
 
 def _gates(p, x, cfg: ModelConfig, x_in=None):
@@ -104,23 +105,31 @@ def rglru_block(p, x, cfg: ModelConfig, cache=None, parallel=None):
     decode step from the cached state and T > 1 a prefill from a zero
     state (the reference ignores the incoming state there); both write
     the new state into the cache tensors in place.
-    parallel: a `sharding.ParallelConfig` (serve profile): p and the
-    cache hold this rank's slice of the recurrence width (`rnn_width`
-    over the model axis): its columns of w_gate_branch, w_in, w_a, w_x,
-    its channels of the conv, the gate biases, Lambda, h, and its rows
-    of w_out. The gate projections read the whole width (their rows are
-    `rnn_in`, whole), so each rank gathers the conv output over the
-    model axis and gates its own slice; w_out and the MLP's w_down sum
-    over the model axis. Returns (x_out, cache)."""
+    parallel: a `sharding.ParallelConfig`: p and the cache hold this
+    rank's slice of the recurrence width (`rnn_width` over the model
+    axis): its columns of w_gate_branch, w_in, w_a, w_x, its channels
+    of the conv, the gate biases, Lambda, h, and its rows of w_out. The
+    gate projections read the whole width (their rows are `rnn_in`,
+    whole), so each rank gathers the conv output over the model axis
+    and gates its own slice; w_out and the MLP's w_down sum over the
+    model axis. Under the train profile (and seq_shard) the block meets
+    the model axis through the collectives with a backward, as the
+    attention block does (`layers._col_in`, `_row_proj`, `_fsdp`): the
+    gathered conv output feeds each rank's own gates, so its grad is
+    reduce-scattered back over model; under seq_shard "full" h is
+    gathered over T before the column-parallel projections (the scan
+    needs every step) and w_out's sum is scattered back into the
+    T-sharded residual. Returns (x_out, cache)."""
     eps = cfg.norm_eps
-    h = rms_norm(x, p["ln1"], eps)
-    gate = act_fn("gelu")(_proj(h, p["w_gate_branch"]))
-    u = _proj(h, p["w_in"])
+    h = _col_in(rms_norm(x, p["ln1"], eps), parallel)
+    gate = act_fn("gelu")(_proj(h, _fsdp(p["w_gate_branch"], parallel, 0)))
+    u = _proj(h, _fsdp(p["w_in"], parallel, 0))
     decode = cache is not None and x.shape[1] == 1
     u, conv_state = causal_conv1d(p["conv_w"], u,
                                   cache["conv"] if decode else None)
-    u_in = None if parallel is None else all_gather(
-        u, parallel, parallel.tp_axis, u.ndim - 1)
+    u_in = None
+    if parallel is not None:
+        u_in = gather_to_split(u, parallel, parallel.tp_axis, u.ndim - 1)
     if decode:
         y, h_last = rglru_step(p, u, cfg, cache["h"], u_in)
     else:  # a sequence, or a prefill: the scan from a zero state
@@ -128,9 +137,9 @@ def rglru_block(p, x, cfg: ModelConfig, cache=None, parallel=None):
     if cache is not None:
         cache["h"].copy_(h_last)
         cache["conv"].copy_(conv_state)
-    out = _proj(y * gate, p["w_out"], parallel)
+    out = _row_proj(y * gate, p["w_out"], parallel, 1)
     x = x + out
 
-    h = rms_norm(x, p["ln2"], eps)
+    h = _col_in(rms_norm(x, p["ln2"], eps), parallel)
     x = x + mlp(p["mlp"], h, cfg, parallel)
     return x, cache

@@ -20,9 +20,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _proj, f32_up, rms_norm
+from repro_torch.models.layers import (_autograd_path, _col_in, _fsdp,
+                                       _proj, _row_proj, f32_up, rms_norm)
 from repro_torch.models.rglru import causal_conv1d
-from repro_torch.sharding import all_reduce
+from repro_torch.sharding import all_reduce, copy_to_split, sum_to_shared
 
 NEG_INF = -1e30
 
@@ -125,13 +126,21 @@ def _gated_norm(y, z, w, eps: float, parallel=None):
     each rank's mean square is averaged over the axis before the rsqrt
     (the mean of equal-sized slices' means is the whole width's; a
     per-slice norm would be wrong and still finite). On one rank the
-    average is the rank's own mean, so it gives rms_norm's bits."""
+    average is the rank's own mean, so it gives rms_norm's bits. Under
+    the train profile the sum has a backward that sums over model too:
+    each rank's normalizer feeds its own slice, so each rank's mean
+    square gets every rank's grad of it."""
     g = y * F.silu(z)
     if parallel is None:
         return rms_norm(g, w, eps, zero_centered=False)
     gf = f32_up(g)
-    var = all_reduce(torch.mean(gf * gf, dim=-1, keepdim=True), parallel,
-                     parallel.tp_axis) / parallel.tp_size
+    ms = torch.mean(gf * gf, dim=-1, keepdim=True)
+    if _autograd_path(parallel):
+        ms = copy_to_split(sum_to_shared(ms, parallel, parallel.tp_axis),
+                           parallel, parallel.tp_axis)
+    else:
+        ms = all_reduce(ms, parallel, parallel.tp_axis)
+    var = ms / parallel.tp_size
     return (gf * torch.rsqrt(var + eps) * f32_up(w)).to(g.dtype)
 
 
@@ -158,31 +167,39 @@ def ssd_block(p, x, cfg: ModelConfig, cache=None, parallel=None):
     reference ignores the incoming S there, and seeds the convolutions
     with the cached inputs, zeros in a prefill's fresh cache); both
     write the new state into the cache tensors in place.
-    parallel: a `sharding.ParallelConfig` (serve profile): p and the
-    cache hold this rank's heads over the model axis (`ssd_heads`: w_dt,
-    A_log, dt_bias, D, S) and their slice of the inner width
-    (`ssd_inner`: w_z, w_x, conv_x, norm_w, w_out's rows, the x conv
-    state); w_B, w_C and their convs stay whole (`ssd_gn`). The gated
-    norm averages its mean square over the model axis and w_out sums
-    over it. Returns (x_out, cache)."""
+    parallel: a `sharding.ParallelConfig`: p and the cache hold this
+    rank's heads over the model axis (`ssd_heads`: w_dt, A_log,
+    dt_bias, D, S) and their slice of the inner width (`ssd_inner`:
+    w_z, w_x, conv_x, norm_w, w_out's rows, the x conv state); w_B, w_C
+    and their convs stay whole (`ssd_gn`), each rank reading its heads'
+    groups of them. The gated norm averages its mean square over the
+    model axis and w_out sums over it. Under the train profile (and
+    seq_shard) the block meets the model axis through the collectives
+    with a backward (`layers._col_in`, `_row_proj`, `_fsdp`): the
+    projections' input is h whose grad sums over model (under seq_shard
+    "full" h gathered over T first: the chunked scan needs every step),
+    and w_out's sum goes back into the residual (scattered over T under
+    seq_shard "full"). w_B, w_C and their convs get each rank's part of
+    their grad (its groups' heads'), which the train step's grad sync
+    sums over model. Returns (x_out, cache)."""
     s = cfg.ssd
     eps = cfg.norm_eps
     P = s.head_dim
     G, N = s.n_groups, s.d_state
 
-    h = rms_norm(x, p["ln1"], eps)
-    z = _proj(h, p["w_z"])
-    xb = _proj(h, p["w_x"])
-    Bc = _proj(h, p["w_B"])
-    Cc = _proj(h, p["w_C"])
-    dt = _proj(h, p["w_dt"])
+    h = _col_in(rms_norm(x, p["ln1"], eps), parallel)
+    z = _proj(h, _fsdp(p["w_z"], parallel, 0))
+    xb = _proj(h, _fsdp(p["w_x"], parallel, 0))
+    Bc = _proj(h, _fsdp(p["w_B"], parallel, 0))
+    Cc = _proj(h, _fsdp(p["w_C"], parallel, 0))
+    dt = _proj(h, _fsdp(p["w_dt"], parallel, 0))
     cs = cache["conv"] if cache is not None else {}
     xb, st_x = causal_conv1d(p["conv_x"], xb, cs.get("x"))
     Bc, st_b = causal_conv1d(p["conv_B"], Bc, cs.get("B"))
     Cc, st_c = causal_conv1d(p["conv_C"], Cc, cs.get("C"))
     xb, Bc, Cc = F.silu(xb), F.silu(Bc), F.silu(Cc)
 
-    Bt, T = x.shape[0], x.shape[1]
+    Bt, T = xb.shape[0], xb.shape[1]
     di = xb.shape[-1]               # this rank's inner width
     H = di // P                     # and heads
     xh = xb.reshape(Bt, T, H, P)
@@ -204,5 +221,5 @@ def ssd_block(p, x, cfg: ModelConfig, cache=None, parallel=None):
     y = y + p["D"][None, None, :, None] * xh  # skip connection
     y = y.reshape(Bt, T, di)
     y = _gated_norm(y, z, p["norm_w"], eps, parallel)
-    out = _proj(y, p["w_out"], parallel)
+    out = _row_proj(y, p["w_out"], parallel, 1)
     return x + out, cache

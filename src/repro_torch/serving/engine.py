@@ -52,9 +52,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ATTN_KINDS, ModelConfig
-from repro_torch.models.model import (check_parallel, decode_step, forward,
-                                      init_cache, prefill,
-                                      whole_embed_table)
+from repro_torch.models.model import (decode_step, forward, init_cache,
+                                      prefill, whole_embed_table)
 from repro_torch.models.params import tree_leaves
 from repro_torch.sharding import all_gather
 from repro_torch.utils import resolve_device
@@ -100,7 +99,6 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self._graphs_on = graphs and self.device.type == "cuda"
         if parallel is not None:
-            check_parallel(cfg, parallel)
             if parallel.profile != "serve":
                 raise ValueError(
                     f"profile {parallel.profile!r}: the engine serves "

@@ -8,8 +8,8 @@ axes, entry by entry. Two profiles:
 - **train**: FSDP(ZeRO-3) + TP. Weight matmul-input dims (`hidden_in`,
   `embed`, `expert_in`) shard over the data axis; TP dims (`heads`,
   `ff`, `vocab`, `experts`|`expert_ff`, `rnn_width`, `ssd_inner`...)
-  over the model axis. The port trains the attention-only models on it
-  (the MoE, RG-LRU and SSD blocks raise: ROADMAP queue 1 item 3.3).
+  over the model axis. The port trains every block kind on it
+  (attention, MoE in each moe_mode, RG-LRU, SSD).
 - **serve**: heads and `ff` over model, no FSDP for dense weights, the
   embedding table's `embed` dim over data; KV caches: batch over (pod,
   data), kv-heads over model where n_kv_heads divides the model axis,
@@ -71,7 +71,10 @@ class ParallelConfig:
     profile: str = "train"              # train | serve
     seq_shard: bool = False             # Megatron-style SP between blocks
     seq_mode: str = "full"
-    attn_pin: bool = False              # pin q/k/v head-sharded (per-arch lever)
+    # Pin q/k/v head-sharded (the reference's per-arch lever): how the
+    # port's attention always runs (each rank its own heads), so the
+    # port accepts it and it changes nothing.
+    attn_pin: bool = False
 
     @property
     def sizes(self) -> dict:

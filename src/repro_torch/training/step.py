@@ -11,8 +11,8 @@ no backward, so training runs the plain attention (`attn_impl` "auto",
 "naive" or "chunked") on float weights; `kernels.ops` raises where a
 kernel would be differentiated.
 
-parallel= (a `make_parallel(mesh, "train")` config; attention-only
-models): the state is this rank's shards (`sharding.shard_tree` by
+parallel= (a `make_parallel(mesh, "train")` config; every block kind):
+the state is this rank's shards (`sharding.shard_tree` by
 `tree_specs(train_state_logical_axes(...))`), the batch the whole
 batch on every rank. Each data rank's loss is its own rows' mean,
 replicated over `model`; autograd differentiates the forward's
@@ -21,7 +21,11 @@ ranks computed different parts of it (`models.model.grad_sync_axes`)
 and divided by the data ranks' count once, so the grads are those of
 the global mean loss. The loss and metrics are the means over the data
 ranks. Loss, grads and the updated state equal the unsharded step's up
-to the order of the sums."""
+to the order of the sums, except the MoE's load-balance term: each
+data rank adds its own rows' (moe_mode ep / tp), so the step's is their
+mean over the data ranks, as in the reference's sharded step (f * P is
+not linear in the rows; in ep2d / tp2d each rank's is the whole
+batch's)."""
 
 from __future__ import annotations
 
@@ -60,7 +64,8 @@ def cross_entropy(logits, labels, z_weight: float = 0.0):
 def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01,
                  z_weight: float = 0.0, *, parallel=None):
     """(params, batch) -> (total, {"loss", "aux_loss"}). parallel: this
-    data rank's rows' loss (see the module docstring)."""
+    data rank's rows' loss and its own aux_loss (see the module
+    docstring)."""
     compute = dtype_of(cfg.compute_dtype)
     if parallel is not None and parallel.profile != "train":
         raise ValueError(f"profile {parallel.profile!r}: a train step "

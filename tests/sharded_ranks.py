@@ -217,12 +217,13 @@ def _rank_train_case(case, par, out):
     batches = [{k: torch.from_numpy(v) for k, v in b.items()}
                for b in case["batches"]]
     res = {}
-    (_, m0), grads = make_grad_fn(cfg, parallel=par)(state["params"],
-                                                     batches[0])
+    aux_weight = case["aux_weight"]
+    _, grads = make_grad_fn(cfg, aux_weight, parallel=par)(
+        state["params"], batches[0])
     res["grad"] = max(_leaf_errs(gather_tree(grads, specs["params"], par),
                                  want["grads"],
                                  lambda w: max(np.abs(w).max(), 1e-30)))
-    step = make_train_step(cfg, opt, parallel=par)
+    step = make_train_step(cfg, opt, aux_weight, parallel=par)
     losses, norms = [], []
     for b in batches:
         state, m = step(state, b)
@@ -273,31 +274,47 @@ def _rank_levers_case(case, mesh, out):
 def _rank_launcher(case, rank, world, out_dir):
     """The launcher under torchrun's env:// variables on this rank (the
     test's own process group destroyed first): `--mesh-shape` for the
-    whole run with a checkpoint every 3 steps, then, with the last
-    checkpoint removed, the same command again (it resumes from step
-    3). Writes whether the two runs' final shards are equal bit for bit,
-    and this rank's coordinates and final shards (numpy, for the test
-    to hold against the checkpoint restored unsharded)."""
+    whole run with a checkpoint every few steps; with c["resume"], the
+    last checkpoint removed and the same command again (it resumes from
+    the one before). Writes to <name>_rank<r>.pkl: whether the two
+    runs' final shards are equal bit for bit (True without a resume),
+    the last step, the last loss the run printed (rank 0; None on the
+    others), whether every float shard is finite, and this rank's
+    coordinates and final shards (numpy, for the test to hold against
+    the checkpoint restored unsharded)."""
+    import contextlib
+    import io
     from repro_torch.launch import train as launcher
     from repro_torch.models.params import tree_leaves_sorted, tree_map
     c = case["launcher"]
     os.environ.update(MASTER_ADDR="localhost", WORLD_SIZE=str(world),
                       RANK=str(rank), LOCAL_RANK=str(rank))
     os.environ["MASTER_PORT"] = str(c["ports"][0])
-    straight = launcher.main(c["args"])
-    if rank == 0:
-        shutil.rmtree(os.path.join(c["ckpt"], f"step_{c['last']:08d}"))
-    # The next run's rendezvous waits for rank 0, so no rank looks for
-    # the latest checkpoint before it is gone.
-    os.environ["MASTER_PORT"] = str(c["ports"][1])
-    resumed = launcher.main(c["args"])
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        straight = launcher.main(c["args"])
+    resumed = straight
+    if c.get("resume", True):
+        if rank == 0:
+            shutil.rmtree(os.path.join(c["ckpt"], f"step_{c['last']:08d}"))
+        # The next run's rendezvous waits for rank 0, so no rank looks
+        # for the latest checkpoint before it is gone.
+        os.environ["MASTER_PORT"] = str(c["ports"][1])
+        resumed = launcher.main(c["args"])
+    losses = [float(w[w.index("loss") + 1]) for w in (
+        line.split() for line in printed.getvalue().splitlines())
+        if "loss" in w]
     coords = np.unravel_index(rank, c["shape"])
-    with open(os.path.join(out_dir, f"launcher_rank{rank}.pkl"), "wb") as f:
+    leaves = tree_leaves_sorted(resumed)
+    name = case.get("name", "launcher")
+    with open(os.path.join(out_dir, f"{name}_rank{rank}.pkl"), "wb") as f:
         pickle.dump({
             "equal": all(torch.equal(a, b) for a, b in zip(
-                tree_leaves_sorted(straight), tree_leaves_sorted(resumed),
-                strict=True)),
+                tree_leaves_sorted(straight), leaves, strict=True)),
             "step": int(resumed["step"]),
+            "loss": losses[-1] if losses else None,
+            "finite": all(bool(torch.isfinite(t).all()) for t in leaves
+                          if t.is_floating_point()),
             "coords": dict(zip(c["axes"], (int(i) for i in coords))),
             "state": tree_map(lambda t: t.numpy(), resumed)}, f)
 

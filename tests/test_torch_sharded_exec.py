@@ -254,22 +254,18 @@ class _FakeMesh:
                                   "mamba2_2_7b"])
 def test_unsupported_blocks_raise_under_parallel(arch):
     """The MoE, RG-LRU and SSD blocks compute under the serve profile
-    (tests/test_torch_sharded_blocks.py); under the train profile they
-    raise (before any collective), from forward, prefill and the
-    engine."""
+    (tests/test_torch_sharded_blocks.py) and under the train profile and
+    its levers (tests/test_torch_sharded_train_blocks.py). What still
+    refuses them under a ParallelConfig is the engine under the train
+    profile, as it refuses every model (it serves), before any
+    collective."""
     cfg = reduced_config(arch)
     par = ParallelConfig(mesh=_FakeMesh(), data_axes=("data",),
                          profile="train")
     params = init_params(cfg, 0, device="cpu")
-    x = torch.zeros((B, 4), dtype=torch.int32)
-    for call in (lambda: forward(params, x, cfg, parallel=par),
-                 lambda: prefill(params, x, cfg, 8, parallel=par),
-                 lambda: InferenceEngine(cfg, params, batch_size=B,
-                                         max_seq=8, device="cpu",
-                                         parallel=par)):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 3.3"):
-            call()
+    with pytest.raises(ValueError, match="the engine serves"):
+        InferenceEngine(cfg, params, batch_size=B, max_seq=8, device="cpu",
+                        parallel=par)
 
 
 LEVERS = [{"profile": "train"},

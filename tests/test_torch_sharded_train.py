@@ -73,6 +73,7 @@ runs round independently of the reference, each landing on either side
 of it, so the sharded run can be as far again as the unsharded one.
 """
 
+import contextlib
 import pickle
 import socket
 
@@ -124,37 +125,46 @@ def _batches(cfg, seed, T):
     return out
 
 
-def _reference(arch, seed, opt="adamw", T=T):
+def _reference(arch, seed, opt="adamw", T=T, tweak=None, aux_weight=0.01,
+               aux_shards=1):
     """The weights (the port's `init_params`, numpy), batches and the
     reference's unsharded jitted train step on them: the first batch's
     grads, each step's loss and grad_norm, the params after TRAIN_STEPS
-    steps (numpy)."""
-    jcfg = jax_reduced_config(arch).with_runtime(param_dtype="float32")
+    steps (numpy). tweak: a function of a config applied to both
+    packages' reduced configs; aux_weight: the MoE load-balance term's
+    weight; aux_shards > 1: that term is the mean over that many row
+    blocks of the batch of each block's loss (`_shard_aux`)."""
+    jcfg = _tweaked(jax_reduced_config(arch), tweak).with_runtime(
+        param_dtype="float32")
+    tcfg = _tweaked(reduced_config(arch), tweak).with_runtime(
+        param_dtype="float32")
     jopt = train_optimizer(JO, opt)
-    params = tree_map(lambda t: t.numpy(), init_params(
-        reduced_config(arch).with_runtime(param_dtype="float32"), seed,
-        device="cpu"))
+    params = tree_map(lambda t: t.numpy(), init_params(tcfg, seed,
+                                                       device="cpu"))
     jp = jax.tree.map(jnp.asarray, params)
     batches = _batches(jcfg, seed, T)
-    train_step = JS.make_train_step(jcfg, jopt)
-    loss_fn = JS.make_loss_fn(jcfg)
+    with _shard_aux(aux_shards):
+        train_step = JS.make_train_step(jcfg, jopt, aux_weight=aux_weight)
+        loss_fn = JS.make_loss_fn(jcfg, aux_weight=aux_weight)
 
-    @jax.jit
-    def run(state, b):
-        grads = jax.grad(lambda p: loss_fn(p, b)[0])(state["params"])
-        state, m = train_step(state, b)
-        return grads, state, m
-    state = {"params": jp, "opt": jopt.init(jp),
-             "step": jnp.zeros((), jnp.int32)}
-    losses, norms = [], []
-    for i, b in enumerate(batches):
-        g, state, m = run(state, {k: jnp.asarray(v) for k, v in b.items()})
-        if i == 0:
-            grads = jax.tree.map(np.asarray, g)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]) if "grad_norm" in m else None)
-    want = jax.tree.map(np.asarray, state["params"])
-    port = _unsharded_port(arch, opt, params, batches)
+        @jax.jit
+        def run(state, b):
+            grads = jax.grad(lambda p: loss_fn(p, b)[0])(state["params"])
+            state, m = train_step(state, b)
+            return grads, state, m
+        state = {"params": jp, "opt": jopt.init(jp),
+                 "step": jnp.zeros((), jnp.int32)}
+        losses, norms = [], []
+        for i, b in enumerate(batches):
+            g, state, m = run(state, {k: jnp.asarray(v)
+                                      for k, v in b.items()})
+            if i == 0:
+                grads = jax.tree.map(np.asarray, g)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]) if "grad_norm" in m
+                         else None)
+        want = jax.tree.map(np.asarray, state["params"])
+        port = _unsharded_port(tcfg, opt, params, batches, aux_weight)
     return dict(params=params, batches=batches,
                 want=dict(grads=grads, losses=losses,
                           grad_norms=None if opt != "adamw" else norms,
@@ -164,27 +174,78 @@ def _reference(arch, seed, opt="adamw", T=T):
                     lambda w: TRAIN_LR[opt])))
 
 
-def _unsharded_port(arch, opt, params, batches):
-    """The port's unsharded TRAIN_STEPS steps on the same weights and
-    batches: its params (numpy)."""
-    cfg = reduced_config(arch).with_runtime(param_dtype="float32")
+def _tweaked(cfg, tweak):
+    return cfg if tweak is None else tweak(cfg)
+
+
+@contextlib.contextmanager
+def _shard_aux(n):
+    """Both packages' `models.model.moe_block_ffn` (in this process
+    only) as the dense FFN whose load-balance loss is the mean over n
+    equal row blocks of the batch of each block's loss: the sharded
+    train step's term over n data shards (moe_mode ep / tp), which no
+    unsharded model computes (f * P is not linear in the rows). n == 1:
+    as they are."""
+    if n == 1:
+        yield
+        return
+    from repro.models import model as JM
+    from repro.models import moe as JMoE
+    from repro_torch.models import moe as TMoE
+
+    def jax_ffn(p, x, cfg, parallel=None):
+        out, _ = JMoE.moe_ffn_dense(p, x, cfg)
+        aux = 0.0
+        for xb in jnp.split(x, n, axis=0):
+            x2 = xb.reshape(-1, xb.shape[-1])
+            vals, idx, probs = JMoE.router_topk(p, x2, cfg)
+            comb = jnp.zeros((x2.shape[0], cfg.moe.n_experts),
+                             jnp.float32).at[
+                jnp.arange(x2.shape[0])[:, None], idx].add(vals)
+            aux = aux + JMoE._load_balance_loss(comb, probs,
+                                                cfg.moe.n_experts)
+        return out, aux / n
+
+    def port_ffn(p, x, cfg, parallel=None):
+        out, _ = TMoE.moe_ffn_dense(p, x, cfg)
+        aux = 0.0
+        for xb in torch.chunk(x, n, dim=0):
+            x2 = xb.reshape(-1, xb.shape[-1])
+            vals, idx, probs = TMoE.router_topk(p, x2, cfg)
+            comb = torch.zeros((x2.shape[0], cfg.moe.n_experts),
+                               dtype=torch.float32).scatter_add(1, idx, vals)
+            aux = aux + TMoE._load_balance_loss(comb, probs,
+                                                cfg.moe.n_experts)
+        return out, aux / n
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JM, "moe_block_ffn", jax_ffn)
+        mp.setattr(TM, "moe_block_ffn", port_ffn)
+        yield
+
+
+def _unsharded_port(cfg, opt, params, batches, aux_weight=0.01):
+    """The port's unsharded TRAIN_STEPS steps of cfg on the same weights
+    and batches: its params (numpy)."""
     topt = train_optimizer(TO, opt)
     p = tree_map(torch.from_numpy, params)
     state = {"params": p, "opt": topt.init(p),
              "step": torch.zeros((), dtype=torch.int32)}
-    step = TS.make_train_step(cfg, topt)
+    step = TS.make_train_step(cfg, topt, aux_weight=aux_weight)
     for b in batches:
         state, _ = step(state, {k: torch.from_numpy(v)
                                 for k, v in b.items()})
     return tree_map(lambda t: t.numpy(), state["params"])
 
 
-def _case(name, ref, arch, opt="adamw", mesh=None, port_kw=(), **train):
-    """A rank case: the port's reduced config (fp32, `port_kw` on top),
-    the reference's outputs `ref`, the train profile's levers `train`."""
-    cfg = reduced_config(arch).with_runtime(param_dtype="float32",
-                                            **dict(port_kw))
-    case = dict(name=name, cfg=cfg, opt=opt, train=train, **ref)
+def _case(name, ref, arch, opt="adamw", mesh=None, port_kw=(), tweak=None,
+          aux_weight=0.01, **train):
+    """A rank case: the port's reduced config (fp32, `tweak` and
+    `port_kw` on top), the reference's outputs `ref`, the MoE aux
+    term's weight, the train profile's levers `train`."""
+    cfg = _tweaked(reduced_config(arch), tweak).with_runtime(
+        param_dtype="float32", **dict(port_kw))
+    case = dict(name=name, cfg=cfg, opt=opt, train=train,
+                aux_weight=aux_weight, **ref)
     if mesh is not None:
         case["mesh"] = mesh
     return case
@@ -378,6 +439,8 @@ OPTIMIZERS = {
 }
 ATTN_ARCHS = ["stablelm_1_6b", "gemma2_9b", "yi_9b", "deepseek_coder_33b",
               "musicgen_large", "chameleon_34b"]
+ALL_ARCHS = ATTN_ARCHS + ["qwen3_moe_235b", "grok_1_314b",
+                         "recurrentgemma_2b", "mamba2_2_7b"]
 TREE_ARCHS = ["stablelm_1_6b", "gemma2_9b", "chameleon_34b",
               "qwen3_moe_235b", "recurrentgemma_2b", "mamba2_2_7b"]
 
@@ -411,11 +474,10 @@ def test_abstract_train_state_matches_reference(arch, opt):
 
 
 def test_sharded_state_specs_split_every_leaf_evenly():
-    """The train state's specs on mesh (2, 4) cut every reduced
-    attention-only config's state evenly (no dim that a split does not
-    divide)."""
+    """The train state's specs on mesh (2, 4) cut every reduced config's
+    state evenly (no dim that a split does not divide)."""
     par = make_parallel(_FakeMesh((2, 4)), "train")
-    for arch in ATTN_ARCHS:
+    for arch in ALL_ARCHS:
         cfg = reduced_config(arch)
         for name in ("mixed-adamw", "mixed-adafactor"):
             opt = OPTIMIZERS[name](TO)
@@ -433,21 +495,31 @@ def test_sharded_state_specs_split_every_leaf_evenly():
 @pytest.mark.parametrize("seq_shard", [False, True])
 @pytest.mark.parametrize("shape", [(2, 2), (2, 4)])
 def test_grad_sync_classifies_every_model_replicated_leaf(shape, seq_shard):
-    """grad_sync_axes names the sync of every leaf of every
-    attention-only config that is replicated over model (it raises on
-    one it cannot classify), and sums over model exactly the leaves
-    each model rank uses on its own part."""
-    par = make_parallel(_FakeMesh(shape), "train", seq_shard=seq_shard)
-    for arch in ATTN_ARCHS:
+    """grad_sync_axes names the sync of every leaf of every config (the
+    attention-only ones, the MoE in each moe_mode, RG-LRU and SSD) that
+    is replicated over model (it raises on one it cannot classify), and
+    sums over model exactly the leaves each model rank uses on its own
+    part (the SSD's B / C projections and convs among them; not the
+    MoE router, whose grad every model rank holds whole)."""
+    for arch in ALL_ARCHS:
         cfg = reduced_config(arch)
-        sync = TM.grad_sync_axes(cfg, par, T)
-        kv_split = make_rules(par, cfg)["kv_heads"] is not None
-        for key, axes in _keyed(sync["blocks"]):
-            partial = (key in ("q_norm", "k_norm")
-                       or (key in ("wk", "wv") and not kv_split)
-                       or (seq_shard and key in TM._SEQ_NORMS))
-            assert ("model" in axes) == partial, (arch, key, axes)
-        assert "model" not in sync["final_norm"]
+        modes = ("ep", "tp", "ep2d", "tp2d") if cfg.moe else ("auto",)
+        for mode in modes:
+            par = make_parallel(_FakeMesh(shape), "train",
+                                seq_shard=seq_shard, moe_mode=mode)
+            sync = TM.grad_sync_axes(cfg, par, T)
+            kv_split = make_rules(par, cfg)["kv_heads"] is not None
+            for key, axes in _keyed(sync["blocks"]):
+                partial = (key in ("q_norm", "k_norm", "w_B", "w_C",
+                                   "conv_B", "conv_C")
+                           or (key in ("wk", "wv") and not kv_split)
+                           or (seq_shard and key in TM._SEQ_NORMS))
+                assert ("model" in axes) == partial, (arch, mode, key, axes)
+            for key, axes in _keyed(sync["tail"]):
+                assert "model" not in axes or key in (
+                    "wk", "wv", "q_norm", "k_norm", "w_B", "w_C", "conv_B",
+                    "conv_C"), (arch, key, axes)
+            assert "model" not in sync["final_norm"]
 
 
 def _keyed(tree, key=None):
@@ -504,17 +576,3 @@ def test_train_step_refuses_the_serve_profile():
     cfg = reduced_config("stablelm_1_6b")
     with pytest.raises(ValueError, match="make_parallel"):
         TS.make_train_step(cfg, OPTIMIZERS["adamw"](TO), parallel=par)
-
-
-def test_train_profile_still_raises_for_other_blocks():
-    """The MoE, RG-LRU and SSD blocks under the train profile raise from
-    the train step's forward, naming their ROADMAP item (before any
-    collective)."""
-    par = make_parallel(_FakeMesh((2, 2)), "train")
-    for arch in ("qwen3_moe_235b", "recurrentgemma_2b", "mamba2_2_7b"):
-        cfg = reduced_config(arch)
-        loss_fn = TS.make_loss_fn(cfg, parallel=par)
-        params = init_params(cfg, 0, device="cpu")
-        x = torch.zeros((4, 4), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="queue 1 item 3.3"):
-            loss_fn(params, {"inputs": x, "labels": x})
